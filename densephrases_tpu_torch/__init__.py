@@ -1,0 +1,26 @@
+"""densephrases_tpu_torch — the phrase index-and-query engine on PyTorch + CUDA.
+
+The port of ``densephrases_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
+Hopper GPU. Module paths and names mirror the JAX package, which stays
+beside it as the reference the port is tested against. This package never
+imports jax or ``densephrases_tpu``; the framework-free host modules are
+copies (``data/``, ``eval/``, ``index/store.py``).
+
+Ported so far, the flat-index serve path:
+
+  - ``PhraseEncoder``  — BERT phrase/query towers (``models/``), with the
+    attention forward as a hand-written CUDA kernel (``csrc/``)
+  - ``MIPS``           — int8 flat MIPS + span rescore (``index/``)
+  - ``DensePhrases``   — the user-facing facade (``model.py``)
+  - ``dump_phrases``   — the phrase dump into the reference's store format
+  - ``FusedServer``    — the serve path with one sync point (``serve/``)
+"""
+
+from densephrases_tpu_torch.models.encoder import PhraseEncoder
+from densephrases_tpu_torch.index.search import MIPS
+from densephrases_tpu_torch.model import DensePhrases
+
+Encoder = PhraseEncoder  # reference-compatible alias
+
+__version__ = "0.1.0"
+__all__ = ["PhraseEncoder", "Encoder", "MIPS", "DensePhrases"]

@@ -1,0 +1,233 @@
+"""The port's flat-index serve path as a whole, against the JAX reference:
+the same docs and the same bridged weights through both ``dump_phrases``,
+both ``MIPS.search`` on one store, the brute-force span oracle, the four
+retrieval units, the fused server, and the import and chip-script
+contracts."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from densephrases_tpu.data import features as jfeat
+from densephrases_tpu.data.tokenization import WordPieceTokenizer as JaxTokenizer
+from densephrases_tpu.dump import dump_phrases as jax_dump
+from densephrases_tpu.index.search import MIPS as JaxMIPS
+from densephrases_tpu.index.store import PhraseStore as JaxPhraseStore
+from densephrases_tpu.models.bert import BertConfig as JaxBertConfig
+from densephrases_tpu.models.encoder import init_encoder_params as jax_init
+from densephrases_tpu_torch.data import features as tfeat
+from densephrases_tpu_torch.data.tokenization import SPECIAL_TOKENS, WordPieceTokenizer
+from densephrases_tpu_torch.dump import dump_phrases
+from densephrases_tpu_torch.index.oracle import check_top1
+from densephrases_tpu_torch.index.search import MIPS
+from densephrases_tpu_torch.index.store import PhraseStore
+from densephrases_tpu_torch.model import DensePhrases
+from densephrases_tpu_torch.models.bert import BertConfig
+from densephrases_tpu_torch.models.from_jax import encoder_from_jax
+from densephrases_tpu_torch.serve.fused import FusedServer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORDS = [f"w{i}" for i in range(200)] + ["paris", "river", "école"]
+
+
+def _docs(n=7, seed=0):
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n):
+        paras = [" ".join(rng.choice(WORDS, int(rng.integers(20, 90))))
+                 + ". End, of para." for _ in range(int(rng.integers(1, 4)))]
+        docs.append({"doc_id": 10 + i, "title": f"Title {i}",
+                     "paragraphs": paras})
+    return docs
+
+
+@pytest.fixture(scope="module")
+def vocab():
+    # whole-word vocab built in plain Python (no `tokenizers` training)
+    toks = SPECIAL_TOKENS + WORDS + ["end", "of", "para", "title", ".", ","] \
+        + [str(i) for i in range(10)] + ["ecole"]
+    return {t: i for i, t in enumerate(toks)}
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory, vocab):
+    tmp = tmp_path_factory.mktemp("slice")
+    docs = _docs()
+    jcfg = JaxBertConfig.tiny(vocab_size=len(vocab))
+    cfg = BertConfig.tiny(vocab_size=len(vocab))
+    jparams = jax_init(jax.random.PRNGKey(0), jcfg)
+    params = encoder_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    jstore = jax_dump(jparams, jcfg, JaxTokenizer(vocab), docs,
+                      str(tmp / "jax"), max_seq_length=64, batch_size=4,
+                      attn_impl="xla")
+    stats = {}
+    tok = WordPieceTokenizer(vocab)
+    store = dump_phrases(params, cfg, tok, docs, str(tmp / "port"),
+                         max_seq_length=64, batch_size=4, _stats=stats)
+    model = DensePhrases(params, cfg, tok, MIPS(store), max_query_length=16,
+                         serve_dtype="bf16")
+    return {"tmp": tmp, "jstore": jstore, "store": store, "stats": stats,
+            "model": model, "cfg": cfg}
+
+
+def test_host_copies_agree(vocab):
+    jt, tt = JaxTokenizer(vocab), WordPieceTokenizer(vocab)
+    paras = ["w1  w2\tParis, école. w3", "river w199 unknownword"]
+    jf, jctx = jfeat.convert_context_to_features(5, "Title 1", paras, jt,
+                                                 max_seq_length=10)
+    tf, tctx = tfeat.convert_context_to_features(5, "Title 1", paras, tt,
+                                                 max_seq_length=10)
+    assert len(jf) == len(tf) > 1
+    for a, b in zip(jf, tf):
+        for f in ("input_ids", "attention_mask", "token_type_ids"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        assert (a.content_start, a.content_len, a.doc_token_offset) == \
+            (b.content_start, b.content_len, b.doc_token_offset)
+    assert jctx.context == tctx.context
+    np.testing.assert_array_equal(jctx.tok2word, tctx.tok2word)
+    qs = ["what is Paris?", "w3 école", ""]
+    for a, b in zip(jfeat.convert_questions_to_features(qs, jt, 8),
+                    tfeat.convert_questions_to_features(qs, tt, 8)):
+        np.testing.assert_array_equal(a.input_ids, b.input_ids)
+        np.testing.assert_array_equal(a.attention_mask, b.attention_mask)
+
+
+def test_dump_matches_reference(setup):
+    js, ps = setup["jstore"], setup["store"]
+    assert setup["stats"]["windows"] > len(_docs())  # docs span windows
+    np.testing.assert_array_equal(ps.doc_bases, js.doc_bases)
+    np.testing.assert_array_equal(ps.doc_ids, js.doc_ids)
+    for i in range(js.num_docs):
+        assert ps.metas[i] == js.metas[i]  # compressed records, byte for byte
+    # bf16 towers in both: an element one bf16 ulp apart (at most 0.016
+    # for |x| < 4) may round to the neighbouring int8 code, 0.05 wide,
+    # never further; a third of such elements at most
+    diff = np.abs(ps.vecs.astype(np.int16) - js.vecs.astype(np.int16))
+    assert diff.max() <= 1, diff.max()
+    assert (diff > 0).mean() < 0.15
+
+
+def _spans(results):
+    """{(doc, start, end, candidate column): score} of one query's results."""
+    return {(r["doc_idx"], r["start_idx"], r["end_idx"], r["cand_col"]):
+            r["score"] for r in results}
+
+
+def test_search_matches_reference_on_one_store(setup):
+    path = str(setup["tmp"] / "jax")
+    jm = JaxMIPS(JaxPhraseStore.load(path))
+    pm = MIPS(PhraseStore.load(path))
+    rng = np.random.default_rng(0)
+    query = rng.standard_normal((4, 2 * setup["cfg"].hidden_size)) \
+        .astype(np.float32)
+    for top_k in (5, 20):
+        ref = jm.search(query, top_k=top_k)
+        out = pm.search(query, top_k=top_k)
+        for r, o in zip(ref, out):
+            rs, os_ = _spans(r), _spans(o)
+            assert rs.keys() == os_.keys()
+            # stage-1 scores share the bf16 query rounding; the fp32 sums
+            # run in another order (scores are O(10))
+            np.testing.assert_allclose([os_[k] for k in rs],
+                                       list(rs.values()), atol=1e-3)
+    agg_r = jm.search(query, top_k=5, aggregate=True, agg_strat="opt4")
+    agg_o = pm.search(query, top_k=5, aggregate=True, agg_strat="opt4")
+    assert [[(r["answer"], r["title"]) for r in rr] for rr in agg_r] == \
+        [[(r["answer"], r["title"]) for r in rr] for rr in agg_o]
+
+
+def test_brute_force_oracle(setup):
+    mips = setup["model"].mips
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        q = rng.standard_normal(2 * mips.store.dim).astype(np.float32)
+        top = mips.search(q[None], top_k=50, return_idxs=True)[0][0]
+        assert top["start_vec"].shape == (mips.store.dim,)
+        assert check_top1(mips.store, q, top) in ("exact", "near-tie")
+
+
+@pytest.mark.parametrize("unit", ["phrase", "sentence", "paragraph", "document"])
+def test_search_all_units(setup, unit):
+    model = setup["model"]
+    answers, rets = model.search(["w3 w4 paris", "river"], retrieval_unit=unit,
+                                 top_k=3, return_meta=True)
+    assert len(answers) == 2
+    for ans, ret in zip(answers, rets):
+        assert 0 < len(ans) <= 3 and len(ret) == len(ans)
+        scores = [r["score"] for r in ret]
+        assert scores == sorted(scores, reverse=True)
+        assert all(np.isfinite(scores))
+    single = model.search("river", retrieval_unit=unit, top_k=2)
+    assert isinstance(single, list) and isinstance(single[0], str)
+
+
+def test_unknown_unit_raises(setup):
+    with pytest.raises(NotImplementedError):
+        setup["model"].search("river", retrieval_unit="word")
+
+
+def test_evaluate(setup):
+    metrics = setup["model"].evaluate([("w3 w4", ["w5"]), ("river", ["w7"])],
+                                      top_k=3)
+    assert metrics["n"] == 2 and len(metrics["predictions"]) == 2
+
+
+def _ids(results):
+    return [[(r["doc_idx"], r["start_idx"], r["end_idx"]) for r in rr]
+            for rr in results]
+
+
+def test_fused_matches_modular(setup):
+    model = setup["model"]
+    queries = ["w3 w4 paris", "river", "end of para w9"]
+    fused = FusedServer(model)
+    out_f = fused.search(queries, top_k=5, aggregate=True)
+    _, out_m = model.search(queries, retrieval_unit="phrase", top_k=5,
+                            return_meta=True)
+    # the same ops on the same device in both paths: identical results
+    assert _ids([r[:5] for r in out_f]) == _ids(out_m)
+    for rr in out_f:
+        for r in rr:
+            assert r["answer"] == r["context"][r["start_pos"]:r["end_pos"]]
+
+
+def test_pipelined_matches_sync(setup):
+    fused = FusedServer(setup["model"])
+    batches = [["w3 w4 paris", "river"], ["w1"], ["w9 w8", "end", "para w2"]]
+    ref = [fused.search(b, top_k=4) for b in batches]
+    out = fused.search_pipelined(batches, depth=2, top_k=4)
+    assert [_ids(o) for o in out] == [_ids(r) for r in ref]
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, densephrases_tpu_torch, densephrases_tpu_torch.dump, "
+            "densephrases_tpu_torch.serve.fused, "
+            "densephrases_tpu_torch.models.from_jax, "
+            "densephrases_tpu_torch.index.oracle\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'densephrases_tpu' or m.startswith('densephrases_tpu.')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_gpu(tmp_path, where):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    cwd = REPO
+    if where == "alone":  # a directory holding chip_smoke.py and nothing else
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        cwd = str(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
