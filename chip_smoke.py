@@ -6,17 +6,25 @@ weights, through the entry points a user calls, and checks every hand-
 written kernel on that path against its plain PyTorch version:
 
   0. device      the card's name and power limit
-  1. build       compile the CUDA kernels from ``densephrases_tpu_torch/csrc``
+  1. build       compile the CUDA kernels from ``densephrases_tpu_torch/csrc``,
+                 one nvcc per source, all started together
   2. kernels     each kernel vs its plain version at the main path's shapes,
-                 with the max error against a stated tolerance and both times
+                 with the max error against a stated tolerance and both times:
+                 attention (A), and the IVF list scans (C: SQ8 / SQ4, D: PQ
+                 8-bit / 4-bit) on a seeded 1M x 768 index of 4,096 lists
   3. dump        ``dump_phrases`` of a seeded synthetic corpus into a store
   4. serve       ``DensePhrases.search`` for all four units, the fused server
                  over 4 batches of 64 queries, the brute-force span oracle,
                  and the kernel path's answers against the plain path's
+  5. ivf         ``IVFIndex.build`` of IVF-SQ8 / OPQ96 / SQ4 / OPQ192x4 on
+                 phase 3's store, ``DensePhrases.search`` over them, the full-
+                 probe check against phase 4's flat path, recall@10 and ms per
+                 batch at nprobe 16, and the oracle over full-probe SQ8
 
-Every kernel's launch counter is zeroed right before phase 3 and read after
-phase 4's main-path work; a kernel of the path that never launched fails the
-run. Any failed check raises, so the script exits non-zero; it also exits
+Kernel A's launch counter is zeroed right before phase 3 and read after
+phase 4's main-path work; kernels C and D's are zeroed right before phase 5
+and read after it. A kernel of a path that never launched fails the run.
+Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when there is no CUDA device. The second-last
 lines are a JSON object of per-kernel results and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -25,6 +33,7 @@ lines are a JSON object of per-kernel results and the card's
 Run from the repository root:  python3 chip_smoke.py
 """
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -36,6 +45,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"
 SEED = 0
 N_DOCS = 64
 QUERY_BATCH = 64
@@ -48,6 +58,19 @@ KERNEL_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # kernel-path vs plain-path top-1 span score: towers in bf16 through 12
 # layers, scores are sums of 768 products of O(1) terms
 SCORE_RTOL = 2e-2
+# kernels C and D vs their plain twins: fp32 sums of the same exact
+# products (C: bf16 x int8) or the same bf16 LUT entries (D), taken in
+# another order; the error stays ~1e-6 of the largest |raw| score
+IVF_KERNEL_RTOL = 1e-5
+# phase 2's synthetic IVF index at the serve shape
+IVF_ROWS, IVF_LISTS, IVF_DIM, IVF_NPROBE = 1 << 20, 4096, 768, 16
+IVF_BATCH = 2 * QUERY_BATCH  # start and end query rows, stacked
+# phase 5: nlist before balancing, and the nprobe of the recall check
+IVF_CLUSTERS, SERVE_NPROBE = 128, 16
+# full-probe IVF-SQ8 vs flat top-1 span: both score bf16(q) . code in fp32
+# and differ only in summation order, so a different top-1 span must be a
+# near-tie within fp32 rounding of the span score
+FULL_PROBE_RTOL = 1e-4
 
 
 def log(phase, **kv):
@@ -63,6 +86,7 @@ def nvidia_smi():
 
 
 def cuda_ms(fn, iters=50, warmup=3):
+    """Mean CUDA-event ms of fn over iters launches after warmup ones."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -121,6 +145,99 @@ def phase_kernels():
     return results
 
 
+def synthetic_ivf():
+    """A seeded IVF layout at the serve shape: 1M rows in 4,096 sorted lists
+    of 128-384 rows, random centroids and a batch of 128 query rows; the
+    batch's real block table at nprobe 16 and the guard budget."""
+    from densephrases_tpu_torch.ops import ivf_pack as pack
+
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(128, 385, IVF_LISTS)
+    lens = (lens * IVF_ROWS // lens.sum()).astype(np.int64)
+    lens[-1] += IVF_ROWS - lens.sum()
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    n_pad = pack._round_up(IVF_ROWS, pack.RB) + pack.RB  # + the pad block
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cents = torch.randn(IVF_LISTS, IVF_DIM, device=DEVICE, generator=gen)
+    q = torch.randn(IVF_BATCH, IVF_DIM, device=DEVICE, generator=gen)
+    cap = int(lens.max())
+    table = pack.pack_budget_table(offs, cap)
+    budget = pack._round_up(
+        int(table[min(IVF_BATCH * IVF_NPROBE, IVF_LISTS) - 1]), 64)
+    blk, total = pack.block_table(
+        pack.probe(q, cents, IVF_NPROBE),
+        torch.as_tensor(offs, device=DEVICE), nlist=IVF_LISTS, cap=cap,
+        pad_blk=n_pad // pack.RB - 1, budget=budget)
+    return {"q": q, "blk": blk, "total": int(total), "budget": budget,
+            "n_pad": n_pad, "gen": gen}
+
+
+def random_codes(ivf, cols, dtype):
+    """[n_pad, cols] random codes with all-zero pad rows, on the card."""
+    codes = torch.zeros(ivf["n_pad"], cols, dtype=dtype, device=DEVICE)
+    lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+    codes[:IVF_ROWS] = torch.randint(lo, hi, (IVF_ROWS, cols), dtype=dtype,
+                                     device=DEVICE, generator=ivf["gen"])
+    return codes
+
+
+def check_ivf_kernel(name, launch, plain, ivf, at):
+    """One kernel against its plain twin on the batch's block table: the
+    valid columns agree and stay finite in a NaN-filled output buffer."""
+    valid = ivf["total"] * 32
+    out = torch.full((IVF_BATCH, ivf["budget"] * 32), float("nan"),
+                     device=DEVICE)
+    got = launch(out)
+    ref = plain()
+    torch.cuda.synchronize()
+    if got.data_ptr() != out.data_ptr():
+        raise AssertionError(f"{name}: the kernel did not write into out")
+    if not bool(torch.isfinite(got[:, :valid]).all()):
+        raise AssertionError(f"{name}: non-finite values in valid columns")
+    err = float((got[:, :valid] - ref[:, :valid]).abs().max())
+    tol = IVF_KERNEL_RTOL * float(ref[:, :valid].abs().max())
+    row = {"at": at, "rows": valid, "budget_blocks": ivf["budget"],
+           "max_abs_err": err, "tol": tol,
+           "ms": cuda_ms(lambda: launch(None), iters=20),
+           "plain_ms": cuda_ms(plain, iters=3, warmup=1)}
+    log("2 kernels", kernel=name, **row)
+    if err > tol:
+        raise AssertionError(f"{name} disagrees with plain: {row}")
+    return row
+
+
+def phase_ivf_kernels():
+    """Kernels C and D at the serve shape on the batch's real block table."""
+    from densephrases_tpu_torch.ops import ivf_pack as pack
+
+    ivf = synthetic_ivf()
+    q_bf, blk = ivf["q"].to(torch.bfloat16), ivf["blk"]
+    rows = {"C": [], "D": []}
+    for sq4 in (False, True):
+        codes = random_codes(ivf, IVF_DIM // 2 if sq4 else IVF_DIM,
+                             torch.int8)
+        rows["C"].append(check_ivf_kernel(
+            "ivf_pack_score",
+            lambda out: pack.pack_score(q_bf, codes, blk, sq4=sq4, out=out),
+            lambda: pack.pack_score_plain(q_bf, codes, blk, sq4=sq4), ivf,
+            f"B={IVF_BATCH} D={IVF_DIM} {'SQ4' if sq4 else 'SQ8'}, "
+            f"1M rows, {IVF_LISTS} lists, nprobe {IVF_NPROBE}"))
+        del codes
+    for m, ksub in ((96, 256), (192, 16)):
+        codes = random_codes(ivf, m if ksub == 256 else m // 2, torch.uint8)
+        lut = torch.randn(IVF_BATCH, m, ksub, device=DEVICE,
+                          generator=ivf["gen"]).to(torch.bfloat16)
+        rows["D"].append(check_ivf_kernel(
+            "pq_pack_score",
+            lambda out: pack.pq_pack_score(lut, codes, blk, out=out),
+            lambda: pack.pq_pack_score_plain(lut, codes, blk), ivf,
+            f"B={IVF_BATCH} M={m} ksub={ksub}, 1M rows, {IVF_LISTS} lists, "
+            f"nprobe {IVF_NPROBE}"))
+        del codes, lut
+    torch.cuda.empty_cache()
+    return rows
+
+
 def synthetic_corpus(rng, n_words=3000):
     """Whole-word vocab and ``N_DOCS`` docs of 600-1400 words, so most span
     more than one 512-token window."""
@@ -141,12 +258,132 @@ def synthetic_corpus(rng, n_words=3000):
     return vocab, words, docs
 
 
-def top1_spans(model, queries):
+def top1_spans(model, queries, top_k=1):
     """(doc, start, end, score) of each query's top phrase."""
-    _, rets = model.search(queries, retrieval_unit="phrase", top_k=1,
+    _, rets = model.search(queries, retrieval_unit="phrase", top_k=top_k,
                            return_meta=True)
     return [(r[0]["doc_idx"], r[0]["start_idx"], r[0]["end_idx"], r[0]["score"])
             for r in rets]
+
+
+def recall_at(got, want):
+    """Mean overlap of two [B, K] id arrays, per row."""
+    return float(np.mean([len(set(g.tolist()) & set(w.tolist())) / len(w)
+                          for g, w in zip(got, want)]))
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock ms of fn, which ends with its results on the host,
+    after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def phase_ivf(store, params, config, tok, flat_model, queries, rng):
+    """Phase 5: build IVF indexes on the dumped store with the port and
+    serve through them. Returns the launch counts of kernels C and D."""
+    from densephrases_tpu_torch.index.ivf import IVFConfig, IVFIndex
+    from densephrases_tpu_torch.index.oracle import check_top1
+    from densephrases_tpu_torch.index.search import MIPS
+    from densephrases_tpu_torch.model import DensePhrases
+    from densephrases_tpu_torch.ops.ivf_pack import (
+        IVF_PACK_SCORE, NEG_INF, PQ_PACK_SCORE)
+
+    IVF_PACK_SCORE.launches = 0
+    PQ_PACK_SCORE.launches = 0
+    max_nlist = int(np.ceil(IVFConfig().nlist_growth_cap * IVF_CLUSTERS))
+
+    def build(fq):
+        stages = {}
+        t0 = time.perf_counter()
+        index = IVFIndex.build(store.vecs, IVFConfig(
+            num_clusters=IVF_CLUSTERS, fine_quant=fq), device=DEVICE,
+            stage_s=stages)
+        torch.cuda.synchronize()
+        log("5 ivf", build=fq, nlist=index.nlist, cap=index.cap,
+            seconds=round(time.perf_counter() - t0, 3), **stages)
+        if not IVF_CLUSTERS <= index.nlist <= max_nlist:
+            raise AssertionError(f"{fq}: nlist {index.nlist} outside "
+                                 f"[{IVF_CLUSTERS}, {max_nlist}]")
+        return index
+
+    models = {}
+    for fq in ("SQ8", "OPQ96"):
+        mips = MIPS(store, index=build(fq))
+        models[fq] = DensePhrases(params, config, tok, mips,
+                                  serve_dtype="bf16",
+                                  max_query_length=MAX_QUERY_LENGTH)
+        for unit in ("phrase", "sentence", "paragraph", "document"):
+            answers, rets = models[fq].search(queries[:8], retrieval_unit=unit,
+                                              top_k=5, return_meta=True)
+            if not all(answers) or not all(
+                    np.isfinite(r["score"]) for ret in rets for r in ret):
+                raise AssertionError(f"{fq} {unit}: empty or non-finite")
+            log("5 ivf", index=fq, unit=unit,
+                first_answer=repr(answers[0][0][:40]))
+
+    # full probe (the default nprobe 256 >= nlist): IVF-SQ8 = the flat path
+    sample = queries[:QUERY_BATCH]
+    got = top1_spans(models["SQ8"], sample, top_k=10)
+    want = top1_spans(flat_model, sample, top_k=10)
+    agree = sum(g[:3] == w[:3] for g, w in zip(got, want)) / len(sample)
+    worst = max(abs(g[3] - w[3]) / max(1.0, abs(w[3]))
+                for g, w in zip(got, want))
+    log("5 ivf", check="full_probe_sq8_vs_flat_top1", agreement=agree,
+        max_rel_score_diff=worst, tol=FULL_PROBE_RTOL)
+    if worst > FULL_PROBE_RTOL:
+        raise AssertionError("full-probe IVF-SQ8 top-1 spans differ from the "
+                             "flat path's beyond a near-tie")
+
+    # nprobe 16: recall@10 of the start hits against the flat index, and
+    # the wall time of MIPS.search for a batch of 64 query vectors
+    qvec = flat_model.query2vec(sample)
+    flat_mips = flat_model.mips
+    flat_ids = flat_mips.search_dense(qvec, top_k=10)[0].cpu().numpy()
+    log("5 ivf", index="flat", batch=QUERY_BATCH,
+        mips_search_ms=host_ms(lambda: flat_mips.search(qvec, top_k=10)))
+    for fq, model in models.items():
+        mips = model.mips
+        ids = mips.search_dense(qvec, top_k=10, nprobe=SERVE_NPROBE)[0]
+        log("5 ivf", index=fq, nprobe=SERVE_NPROBE, batch=QUERY_BATCH,
+            recall_at_10_vs_flat=recall_at(ids.cpu().numpy(), flat_ids),
+            mips_search_ms=host_ms(lambda: mips.search(
+                qvec, nprobe=SERVE_NPROBE, top_k=10)))
+
+    # the 4-bit branches of kernels C and D on the path
+    stacked = torch.cat(qvec.chunk(2, dim=1), 0)
+    for fq in ("SQ4", "OPQ192x4"):
+        index = build(fq)
+        vals, ids = index.search_union(stacked, top_k=10,
+                                       nprobe=SERVE_NPROBE, as_numpy=False)
+        vals = vals.cpu().numpy()
+        live = vals > NEG_INF / 2
+        if vals.shape != (IVF_BATCH, 10) or not live[:, 0].all() \
+                or not np.isfinite(vals[live]).all():
+            raise AssertionError(f"{fq}: malformed search_union results")
+        log("5 ivf", index=fq, nprobe=SERVE_NPROBE, rows=IVF_BATCH,
+            recall_at_10_vs_flat=recall_at(
+                ids[:QUERY_BATCH].cpu().numpy(), flat_ids))
+
+    verdicts = []
+    for _ in range(3):
+        q = rng.standard_normal(2 * config.hidden_size).astype(np.float32)
+        top = models["SQ8"].mips.search(q[None], top_k=50,
+                                        return_idxs=True)[0][0]
+        verdicts.append(check_top1(store, q, top))
+    log("5 ivf", oracle="pass", index="SQ8 full probe",
+        verdicts=",".join(verdicts))
+    counts = {"C": IVF_PACK_SCORE.launches, "D": PQ_PACK_SCORE.launches}
+    log("5 ivf", c_launches=counts["C"], d_launches=counts["D"])
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"phase 5 did not launch every IVF kernel: "
+                             f"{counts}")
+    return counts
 
 
 def main():
@@ -167,28 +404,40 @@ def main():
     from densephrases_tpu_torch.index.search import MIPS
     from densephrases_tpu_torch.model import DensePhrases
     from densephrases_tpu_torch.models.attention import ATTENTION_FWD
+    from densephrases_tpu_torch.ops.ivf_pack import (
+        IVF_PACK_SCORE, PQ_PACK_SCORE)
     from densephrases_tpu_torch.models.bert import BertConfig
     from densephrases_tpu_torch.models.encoder import (
         embed_phrase, init_encoder_params)
     from densephrases_tpu_torch.serve.fused import FusedServer
 
+    t_start = time.perf_counter()
     # ---- 0. device
     smi = nvidia_smi()
     log("0 device", torch=torch.__version__, cuda=torch.version.cuda,
         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
     print(smi, flush=True)
 
-    # ---- 1. build
+    # ---- 1. build: one nvcc per source, all started together
+    kernels = {"attention_fwd": ATTENTION_FWD,
+               "ivf_pack_score": IVF_PACK_SCORE,
+               "pq_pack_score": PQ_PACK_SCORE}
     t0 = time.perf_counter()
-    ATTENTION_FWD.function()
-    log("1 build", kernel="attention_fwd", seconds=round(time.perf_counter() - t0, 2),
-        compiled=ATTENTION_FWD.build_seconds is not None)
-    for line in ATTENTION_FWD.build_log.splitlines():
-        if "registers" in line:
-            log("1 build", ptxas=line.split(":", 1)[-1].strip().replace(" ", "_"))
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k.function(), kernels.values()))
+    log("1 build", kernels=len(kernels),
+        wall_s=round(time.perf_counter() - t0, 2))
+    for name, kernel in kernels.items():
+        log("1 build", kernel=name, compiled=kernel.build_seconds is not None,
+            seconds=round(kernel.build_seconds or 0.0, 2))
+        for line in kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("1 build", kernel=name,
+                    ptxas=line.split(":", 1)[-1].strip().replace(" ", "_"))
 
     # ---- 2. kernels vs plain
     kernel_rows = phase_kernels()
+    ivf_rows = phase_ivf_kernels()
 
     # ---- 3. dump (main path starts: launch counters from zero)
     rng = np.random.default_rng(SEED)
@@ -289,8 +538,12 @@ def main():
     if score_err > SCORE_RTOL:
         raise AssertionError("serve: kernel and plain top-1 scores disagree")
 
+    # ---- 5. ivf (main path: C and D launch counters from zero)
+    ivf_launches = phase_ivf(store, params, config, tok, model, queries, rng)
+
     serve_row = next(r for r in kernel_rows
                      if r["shape"] == "64x12x32x64" and r["dtype"] == "bfloat16")
+    c_row, d_row = ivf_rows["C"][0], ivf_rows["D"][0]
     print(json.dumps({"kernels": [{
         "name": "attention_fwd", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/attention_fwd.cu",
@@ -298,8 +551,23 @@ def main():
         "launches": main_path_launches,
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": serve_row["ms"], "plain_ms": serve_row["plain_ms"],
-        "at": "B=64 H=12 L=32 D=64 bf16"}]}), flush=True)
+        "at": "B=64 H=12 L=32 D=64 bf16"}, {
+        "name": "ivf_pack_score", "route": "cuda",
+        "source": "densephrases_tpu_torch/csrc/ivf_pack_score.cu",
+        "replaces": "densephrases_tpu/ops/ivf_pack.py:94",
+        "launches": ivf_launches["C"],
+        "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["C"]),
+        "ms": c_row["ms"], "plain_ms": c_row["plain_ms"],
+        "at": c_row["at"]}, {
+        "name": "pq_pack_score", "route": "cuda",
+        "source": "densephrases_tpu_torch/csrc/pq_pack_score.cu",
+        "replaces": "densephrases_tpu/ops/ivf_pack.py:343",
+        "launches": ivf_launches["D"],
+        "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["D"]),
+        "ms": d_row["ms"], "plain_ms": d_row["plain_ms"],
+        "at": d_row["at"]}]}), flush=True)
     tmp_dir.cleanup()
+    log("done", total_s=round(time.perf_counter() - t_start, 1))
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

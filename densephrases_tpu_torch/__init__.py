@@ -6,21 +6,25 @@ beside it as the reference the port is tested against. This package never
 imports jax or ``densephrases_tpu``; the framework-free host modules are
 copies (``data/``, ``eval/``, ``index/store.py``).
 
-Ported so far, the flat-index serve path:
+Ported so far, the flat-index and IVF serve paths:
 
   - ``PhraseEncoder``  — BERT phrase/query towers (``models/``), with the
     attention forward as a hand-written CUDA kernel (``csrc/``)
-  - ``MIPS``           — int8 flat MIPS + span rescore (``index/``)
+  - ``IVFIndex``       — IVF-SQ8/SQ4/PQ/OPQ build, save, load and search
+    (``index/ivf.py``), its list scans as CUDA kernels (``csrc/``)
+  - ``MIPS``           — flat or IVF MIPS + span rescore (``index/``)
   - ``DensePhrases``   — the user-facing facade (``model.py``)
   - ``dump_phrases``   — the phrase dump into the reference's store format
   - ``FusedServer``    — the serve path with one sync point (``serve/``)
 """
 
 from densephrases_tpu_torch.models.encoder import PhraseEncoder
+from densephrases_tpu_torch.index.ivf import IVFConfig, IVFIndex
 from densephrases_tpu_torch.index.search import MIPS
 from densephrases_tpu_torch.model import DensePhrases
 
 Encoder = PhraseEncoder  # reference-compatible alias
 
 __version__ = "0.1.0"
-__all__ = ["PhraseEncoder", "Encoder", "MIPS", "DensePhrases"]
+__all__ = ["PhraseEncoder", "Encoder", "IVFConfig", "IVFIndex", "MIPS",
+           "DensePhrases"]

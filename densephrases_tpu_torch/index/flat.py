@@ -84,9 +84,12 @@ class FlatIndex:
             rows = np.array(codes[i0:i0 + slice_rows])
             self.codes[i0:i0 + rows.shape[0]].copy_(torch.from_numpy(rows))
 
-    def search(self, queries, top_k: int = 10, as_numpy: bool = True):
+    def search(self, queries, top_k: int = 10, nprobe: int = 0,
+               as_numpy: bool = True):
         """queries: [B, D] → (scores [B, K] fp32, ids [B, K] int32).
-        as_numpy=False keeps the results on the device."""
+        nprobe is accepted and ignored, as in the reference, so ``MIPS``
+        passes it to either index type. as_numpy=False keeps the results
+        on the device."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
         k = min(top_k, self.n_total)

@@ -1,9 +1,11 @@
-"""MIPS: the online phrase search engine over a flat int8 index.
+"""MIPS: the online phrase search engine over a flat or IVF index.
 
-The counterpart of ``densephrases_tpu/index/search.py`` on its flat path:
+The counterpart of ``densephrases_tpu/index/search.py`` over a device-
+resident index:
 
 stage 1 — ``search_dense``: stack [query_start; query_end] rows and run one
-  batched MIPS over the device-resident ``FlatIndex``.
+  batched MIPS over the ``FlatIndex`` or ``IVFIndex`` (``nprobe`` lists
+  probed; a flat index ignores it).
 stage 2 — ``search_phrase``: for every start hit, score candidate ends within
   ``max_answer_length`` (and symmetrically starts for end hits) on the
   device: a windowed gather of consecutive rows, the int8 dequant, one
@@ -13,8 +15,14 @@ stage 2 — ``search_phrase``: for every start hit, score candidate ends within
 stage 3 — ``_assemble`` (host): char offsets and result dicts; then
   ``aggregate_results`` (opt1–opt4) and the context-window adjustments.
 
-Not ported yet: OPQ rotation, the PQ-decode and host-tiered rescore paths,
-``vecs_on_device``, and the IVF / sharded indexes.
+The rescore reads the int8 corpus in its original row order: a flat index
+shares its padded code buffer, a PQ / OPQ IVF index with an int8 refine
+shares its refine matrix (the store's own codes), and an SQ8 / SQ4 IVF
+index (whose codes are sorted by list) gets the store's vectors uploaded.
+
+Not ported yet: a query rotation (``MIPS.R``), the PQ decode-mode rescore
+(``pq_serve``, a PQ index without refine), the host-tiered rescore,
+``vecs_on_device``, and the tiered / sharded indexes.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 from densephrases_tpu_torch.eval.metrics import normalize_answer
 from densephrases_tpu_torch.index.flat import FlatIndex
+from densephrases_tpu_torch.index.ivf import IVFIndex, _upload
 from densephrases_tpu_torch.index.store import PhraseStore
 from densephrases_tpu_torch.utils.device import resolve_device
 from densephrases_tpu_torch.utils.profiling import StageTimer
@@ -140,19 +149,20 @@ def _sentencize(text: str):
 
 
 class MIPS:
-    """Phrase search engine over a flat int8 index on one device
+    """Phrase search engine over a flat int8 or an IVF index on one device
     (API parity with ref MIPS, index.py:23)."""
 
-    def __init__(self, store: PhraseStore, index: Optional[FlatIndex] = None,
-                 device=None):
-        """device: where to upload the corpus when no ``index`` is given
-        (None: the CPU); with an ``index``, None or the index's device."""
+    def __init__(self, store: PhraseStore, index=None, device=None):
+        """index: a ``FlatIndex`` or ``IVFIndex`` (None: a flat index over
+        the store). device: where to upload the corpus when no ``index`` is
+        given (None: the CPU); with an ``index``, None or its device."""
         self.store = store
         if index is None:
             index = FlatIndex(store.vecs, store.offset, store.scale,
                               device="cpu" if device is None else device)
-        elif not isinstance(index, FlatIndex):
-            raise NotImplementedError("the port serves a FlatIndex only")
+        elif not isinstance(index, (FlatIndex, IVFIndex)):
+            raise NotImplementedError(
+                "the port serves a FlatIndex or an IVFIndex")
         elif device is not None and resolve_device(device).type != index.device.type:
             raise ValueError(f"index is on {index.device}, asked for {device}")
         self.index = index
@@ -170,24 +180,42 @@ class MIPS:
         rdt = np.int32 if store.n_vecs < 2**31 else np.int64
         doc_end_row = np.repeat(store.doc_bases[1:].astype(rdt), lens)
         doc_base_row = np.repeat(store.doc_bases[:-1].astype(rdt), lens)
-        # the rescore shares the index's padded corpus buffer (it clips row
-        # ids, so the pad rows are never read as candidates)
-        self.vecs_dev = index.codes
+        self.vecs_dev = self._rescore_corpus(store, index)
         self.f2o_dev = torch.tensor(f2o, device=self.device)
         self.doc_end_dev = torch.tensor(doc_end_row, device=self.device)
         self.doc_base_dev = torch.tensor(doc_base_row, device=self.device)
         self.timer = StageTimer()
 
+    @staticmethod
+    def _rescore_corpus(store: PhraseStore, index):
+        """The original-order int8 corpus on the index's device for the
+        rescore (which clips row ids, so pad rows are never candidates)."""
+        if isinstance(index, FlatIndex):
+            return index.codes  # shared: the padded flat buffer
+        refine = index.refine_codes
+        if (refine is not None and refine.shape[0] >= store.n_vecs
+                and refine.shape[1] == store.dim):
+            return refine  # PQ / OPQ with refine: the store's own codes
+        if index.pq_books is not None:
+            raise NotImplementedError(
+                "a PQ / OPQ IVF index without an int8 refine needs the "
+                "decode-mode rescore (the reference's pq_serve), which is "
+                "not ported")
+        # SQ8 / SQ4: the index's codes are sorted by list
+        return _upload(store.vecs, torch.int8, index.device)
+
     # ---------------- stage 1 ----------------
-    def search_dense(self, query, top_k: int = 10):
+    def search_dense(self, query, top_k: int = 10, nprobe: int = 256):
         """query: [B, 2D] — returns start/end hit ids + scores as DEVICE
-        tensors (ref: index.py:189-218)."""
+        tensors (ref: index.py:189-218). nprobe: IVF lists probed (capped
+        at nlist by the index; a flat index ignores it)."""
         query = torch.as_tensor(query, dtype=torch.float32, device=self.device)
         b = query.shape[0]
         qs, qe = query.chunk(2, dim=1)
         stacked = torch.cat([qs, qe], 0)
         with self.timer.stage("mips_device"):
-            scores, gids = self.index.search(stacked, top_k, as_numpy=False)
+            scores, gids = self.index.search(stacked, top_k, nprobe=nprobe,
+                                             as_numpy=False)
         s_scores, e_scores = scores[:b], scores[b:]
         s_gids, e_gids = gids[:b], gids[b:]
         return s_gids, e_gids, s_scores, e_scores
@@ -335,12 +363,12 @@ class MIPS:
         return [r for r in results if r["score"] > SCORE_FLOOR]
 
     # ---------------- orchestrator (ref: index.py:450-482) ------------------
-    def search(self, query, q_texts=None, top_k: int = 10,
+    def search(self, query, q_texts=None, nprobe: int = 256, top_k: int = 10,
                aggregate: bool = False, return_idxs: bool = False,
                max_answer_length: int = 10, agg_strat: str = "opt1",
                return_sent: bool = False):
         s_gids, e_gids, s_scores, e_scores = self.search_dense(
-            query, top_k=top_k)
+            query, top_k=top_k, nprobe=nprobe)
         outs = self.search_phrase(
             query, s_gids, e_gids, s_scores, e_scores,
             max_answer_length=max_answer_length, return_idxs=return_idxs,

@@ -5,7 +5,9 @@ units phrase / sentence / paragraph / document with the reference's
 unit→aggregation-strategy map and 2× over-retrieval for the coarser units
 (ref: model.py:76-87), plus ``evaluate``. The query towers run on the
 params' device; the MIPS engine must sit on the same device. The truecaser
-is not ported yet.
+is not ported yet: ``truecase`` keeps its place in both signatures, a
+truecaser passed to ``__init__`` raises, and ``search(truecase=True)`` is a
+no-op without one, as in the reference.
 """
 
 from __future__ import annotations
@@ -39,11 +41,13 @@ class DensePhrases:
 
     def __init__(self, params: EncoderParams, config: BertConfig,
                  tokenizer: WordPieceTokenizer, mips: MIPS,
-                 max_query_length: int = 64, attn_impl: str = "auto",
-                 serve_dtype: Optional[str] = None):
+                 max_query_length: int = 64, truecase=None,
+                 attn_impl: str = "auto", serve_dtype: Optional[str] = None):
         """serve_dtype: None keeps the params' dtype; "bf16" serves from a
         bf16 copy of the weights (the reference's serve_dtype, model.py:54-65;
         the caller's params are not changed)."""
+        if truecase is not None:
+            raise NotImplementedError("the truecaser is not ported")
         if serve_dtype is not None:
             if serve_dtype != "bf16":
                 raise ValueError(f"serve_dtype must be None or 'bf16', got "
@@ -56,6 +60,7 @@ class DensePhrases:
         self.tokenizer = tokenizer
         self.mips = mips
         self.max_query_length = max_query_length
+        self.truecase = truecase
         self.attn_impl = attn_impl
 
     def encode(self, queries: List[str]):
@@ -78,8 +83,8 @@ class DensePhrases:
 
     # ----- search (ref: model.py:55-109) -----
     def search(self, query: Union[str, List[str]], retrieval_unit: str = "phrase",
-               top_k: int = 10, return_meta: bool = False,
-               max_answer_length: int = 10):
+               top_k: int = 10, truecase: bool = True,
+               return_meta: bool = False, max_answer_length: int = 10):
         single = isinstance(query, str)
         queries = [query] if single else list(query)
 

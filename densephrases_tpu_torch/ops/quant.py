@@ -58,3 +58,17 @@ def int4_to_float(code, offset=INT4_OFFSET, scale=INT4_SCALE):
         return unmerged.to(torch.float32) / scale + offset
     unmerged = np.concatenate((code // 16, code % 16), axis=-1)
     return unmerged.astype(np.float32) / scale + offset
+
+
+def train_int4_ranges(sample_f32: np.ndarray, q_lo: float = 0.005,
+                      q_hi: float = 0.995):
+    """Per-dimension trained int4 affine (FAISS QT_4bit trains vmin/vdiff per
+    dim the same way). Host numpy, as in the reference.
+
+    Returns (offset [D], scale [D]) f32 such that
+    ``code = clip(round((x - offset) * scale), 0, 15)`` covers the
+    [q_lo, q_hi] quantile range of each dimension."""
+    lo = np.quantile(sample_f32, q_lo, axis=0).astype(np.float32)
+    hi = np.quantile(sample_f32, q_hi, axis=0).astype(np.float32)
+    span = np.maximum(hi - lo, 1e-6)
+    return lo, (15.0 / span).astype(np.float32)

@@ -10,21 +10,28 @@ point: it waits for that copy, then assembles on the host. ``search_pipelined``
 keeps ``depth`` batches in flight, so host tokenization and assembly of one
 batch overlap the device work of the next.
 
-Limitations: single-device int8 ``FlatIndex`` (as in the reference).
+It serves a single-device int8 ``FlatIndex`` only and refuses any other
+index, as the reference does (an IVF index goes through
+``DensePhrases.search``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from densephrases_tpu_torch.index.flat import FlatIndex
 from densephrases_tpu_torch.index.search import _unpack
 
 
 class FusedServer:
-    """Wraps a DensePhrases model (its MIPS runs a single-device int8
-    FlatIndex). Drop-in for ``.search`` with the phrase unit."""
+    """Wraps a DensePhrases model whose MIPS runs a single-device int8
+    FlatIndex. Drop-in for ``.search`` with the phrase unit."""
 
     def __init__(self, model):
+        index = model.mips.index
+        if not (isinstance(index, FlatIndex) and index.quant == "int8"):
+            raise AssertionError(
+                "fused serving needs a single-device int8 FlatIndex")
         self.model = model
         self.mips = model.mips
 

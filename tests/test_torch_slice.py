@@ -1,9 +1,11 @@
-"""The port's flat-index serve path as a whole, against the JAX reference:
-the same docs and the same bridged weights through both ``dump_phrases``,
-both ``MIPS.search`` on one store, the brute-force span oracle, the four
-retrieval units, the fused server, and the import and chip-script
+"""The port's serve path as a whole, against the JAX reference: the same
+docs and the same bridged weights through both ``dump_phrases``, both
+``MIPS.search`` on one store over a flat index and over IVF indexes the
+reference built, the brute-force span oracle, the four retrieval units, the
+fused server, the public signatures, and the import and chip-script
 contracts."""
 
+import inspect
 import os
 import shutil
 import subprocess
@@ -17,13 +19,19 @@ import torch
 from densephrases_tpu.data import features as jfeat
 from densephrases_tpu.data.tokenization import WordPieceTokenizer as JaxTokenizer
 from densephrases_tpu.dump import dump_phrases as jax_dump
+from densephrases_tpu.index.flat import FlatIndex as JaxFlatIndex
+from densephrases_tpu.index.ivf import IVFConfig as JaxIVFConfig
+from densephrases_tpu.index.ivf import IVFIndex as JaxIVFIndex
 from densephrases_tpu.index.search import MIPS as JaxMIPS
 from densephrases_tpu.index.store import PhraseStore as JaxPhraseStore
 from densephrases_tpu.models.bert import BertConfig as JaxBertConfig
+from densephrases_tpu.model import DensePhrases as JaxDensePhrases
 from densephrases_tpu.models.encoder import init_encoder_params as jax_init
 from densephrases_tpu_torch.data import features as tfeat
 from densephrases_tpu_torch.data.tokenization import SPECIAL_TOKENS, WordPieceTokenizer
 from densephrases_tpu_torch.dump import dump_phrases
+from densephrases_tpu_torch.index.flat import FlatIndex
+from densephrases_tpu_torch.index.ivf import IVFConfig, IVFIndex
 from densephrases_tpu_torch.index.oracle import check_top1
 from densephrases_tpu_torch.index.search import MIPS
 from densephrases_tpu_torch.index.store import PhraseStore
@@ -209,7 +217,11 @@ def test_import_leaves_jax_out():
     code = ("import sys, densephrases_tpu_torch, densephrases_tpu_torch.dump, "
             "densephrases_tpu_torch.serve.fused, "
             "densephrases_tpu_torch.models.from_jax, "
-            "densephrases_tpu_torch.index.oracle\n"
+            "densephrases_tpu_torch.index.oracle, "
+            "densephrases_tpu_torch.index.ivf, "
+            "densephrases_tpu_torch.ops.ivf_pack, "
+            "densephrases_tpu_torch.ops.kmeans, densephrases_tpu_torch.ops.pq, "
+            "densephrases_tpu_torch.ops.opq\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'densephrases_tpu' or m.startswith('densephrases_tpu.')]\n"
             "assert not bad, bad\n")
@@ -231,3 +243,135 @@ def test_chip_smoke_fails_without_gpu(tmp_path, where):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+# ------------------------------------------------------------- IVF serving
+IVF_NLIST = 8
+
+
+@pytest.fixture(scope="module")
+def ivf_saves(setup):
+    """SQ8 and OPQ8 indexes the reference built over the reference's store
+    and saved; each package loads them."""
+    store = JaxPhraseStore.load(str(setup["tmp"] / "jax"))
+    out = {}
+    for fq in ("SQ8", "OPQ8"):
+        idx = JaxIVFIndex.build(store.vecs, JaxIVFConfig(
+            num_clusters=IVF_NLIST, fine_quant=fq, kmeans_iters=4,
+            pq_iters=3, opq_iters=2))
+        idx.save(str(setup["tmp"] / f"ivf_{fq}"))
+        out[fq] = str(setup["tmp"] / f"ivf_{fq}")
+    return out
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("fq", ["SQ8", "OPQ8"])
+def test_ivf_search_matches_reference_on_one_store(setup, ivf_saves, fq, b):
+    path = str(setup["tmp"] / "jax")
+    jm = JaxMIPS(JaxPhraseStore.load(path),
+                 index=JaxIVFIndex.load(ivf_saves[fq]))
+    pm = MIPS(PhraseStore.load(path), index=IVFIndex.load(ivf_saves[fq]))
+    rng = np.random.default_rng(7 + b)
+    query = rng.standard_normal((b, 2 * setup["cfg"].hidden_size)) \
+        .astype(np.float32)
+    for nprobe in (2, IVF_NLIST):
+        ref = jm.search(query, nprobe=nprobe, top_k=8)
+        out = pm.search(query, nprobe=nprobe, top_k=8)
+        for r, o in zip(ref, out):
+            rs, os_ = _spans(r), _spans(o)
+            assert rs.keys() == os_.keys()
+            np.testing.assert_allclose([os_[k] for k in rs],
+                                       list(rs.values()), atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def ivf_model(setup):
+    """The slice's model over a port-built full-probe SQ8 IVF index."""
+    store, model = setup["store"], setup["model"]
+    index = IVFIndex.build(store.vecs, IVFConfig(
+        num_clusters=IVF_NLIST, fine_quant="SQ8", kmeans_iters=4))
+    mips = MIPS(store, index=index)
+    return DensePhrases(model.params, model.config, model.tokenizer, mips,
+                        max_query_length=16)
+
+
+@pytest.mark.parametrize("unit", ["phrase", "sentence", "paragraph", "document"])
+def test_search_all_units_over_ivf(ivf_model, unit):
+    answers, rets = ivf_model.search(["w3 w4 paris", "river"],
+                                     retrieval_unit=unit, top_k=3,
+                                     return_meta=True)
+    assert len(answers) == 2
+    for ans, ret in zip(answers, rets):
+        assert 0 < len(ans) <= 3 and len(ret) == len(ans)
+        scores = [r["score"] for r in ret]
+        assert scores == sorted(scores, reverse=True)
+        assert all(np.isfinite(scores))
+
+
+def test_brute_force_oracle_over_full_probe_ivf(ivf_model):
+    mips = ivf_model.mips
+    assert mips.index.nlist <= 256  # the default nprobe probes every list
+    rng = np.random.default_rng(11)
+    for b in (1, 4):  # the per-probe route and the union route
+        q = rng.standard_normal((b, 2 * mips.store.dim)).astype(np.float32)
+        tops = mips.search(q, top_k=50, return_idxs=True)
+        for qi, res in zip(q, tops):
+            assert check_top1(mips.store, qi, res[0]) in ("exact", "near-tie")
+
+
+def test_fused_server_refuses_ivf(ivf_model):
+    with pytest.raises(AssertionError, match="FlatIndex"):
+        FusedServer(ivf_model)
+
+
+def test_pq_index_without_refine_is_refused(setup, ivf_saves):
+    index = IVFIndex.load(ivf_saves["OPQ8"], drop_refine=True)
+    with pytest.raises(NotImplementedError, match="pq_serve"):
+        MIPS(setup["store"], index=index)
+
+
+# ------------------------------------------- public signatures (repairs)
+def _params(fn):
+    return [p for p in inspect.signature(fn).parameters if p != "self"]
+
+
+@pytest.mark.parametrize("port_fn,ref_fn", [
+    (MIPS.search, JaxMIPS.search),
+    (MIPS.search_dense, JaxMIPS.search_dense),
+    (FlatIndex.search, JaxFlatIndex.search),
+    (IVFIndex.search, JaxIVFIndex.search),
+    (IVFIndex.search_union, JaxIVFIndex.search_union),
+    (DensePhrases.search, JaxDensePhrases.search),
+    (DensePhrases.__init__, JaxDensePhrases.__init__),
+], ids=["MIPS.search", "MIPS.search_dense", "FlatIndex.search",
+        "IVFIndex.search", "IVFIndex.search_union", "DensePhrases.search",
+        "DensePhrases.__init__"])
+def test_signatures_follow_reference(port_fn, ref_fn):
+    # positional arguments mean the same in both packages: the port's
+    # parameters are the reference's, in order (the port may stop early)
+    port, ref = _params(port_fn), _params(ref_fn)
+    assert port == ref[:len(port)], (port, ref)
+
+
+def test_positional_nprobe_and_top_k(setup):
+    mips = setup["model"].mips
+    q = np.random.default_rng(3).standard_normal(
+        (2, 2 * setup["cfg"].hidden_size)).astype(np.float32)
+    by_pos = mips.search(q, None, 4, 3)  # nprobe=4, top_k=3
+    by_kw = mips.search(q, top_k=3)
+    assert [_spans(r) for r in by_pos] == [_spans(r) for r in by_kw]
+    assert all(len(r) <= 2 * 3 for r in by_pos)
+    index = mips.index
+    for a, b in zip(index.search(q[:, :64], 5, 7),
+                    index.search(q[:, :64], top_k=5)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_truecase_keeps_its_place(setup):
+    model = setup["model"]
+    with pytest.raises(NotImplementedError, match="truecaser"):
+        DensePhrases(model.params, model.config, model.tokenizer,
+                     model.mips, 16, object())
+    # positional: query, retrieval_unit, top_k, truecase, return_meta
+    answers, rets = model.search("river", "phrase", 2, True, True)
+    assert 0 < len(answers) <= 2 and len(rets) == len(answers)
