@@ -16,14 +16,24 @@ written kernel on that path against its plain PyTorch version:
   4. serve       ``DensePhrases.search`` for all four units, the fused server
                  over 4 batches of 64 queries, the brute-force span oracle,
                  and the kernel path's answers against the plain path's
+  2b. attn bwd   kernel B vs ``attention_bwd_plain`` (dq, dk, dv) at the
+                 training shapes, bf16 and fp32; A and B at ragged lengths
+                 for every head dim; the autograd Function (kernels A + B)
+                 vs torch autograd of the plain forward
   5. ivf         ``IVFIndex.build`` of IVF-SQ8 / OPQ96 / SQ4 / OPQ192x4 on
                  phase 3's store, ``DensePhrases.search`` over them, the full-
                  probe check against phase 4's flat path, recall@10 and ms per
                  batch at nprobe 16, and the oracle over full-probe SQ8
+  6. train       ``cli.train_rc.main`` at BERT-base width for 6 steps on a
+                 synthetic SQuAD file from phase 3's corpus, every loss part
+                 and the teacher; dev eval and filter sweep; the saved encoder
+                 served; one step through the kernels vs the plain attention
 
 Kernel A's launch counter is zeroed right before phase 3 and read after
 phase 4's main-path work; kernels C and D's are zeroed right before phase 5
-and read after it. A kernel of a path that never launched fails the run.
+and read after it; kernels A and B's are zeroed again right before phase 6's
+``train_rc.main`` and read right after it, and must equal the counts the
+path implies. A kernel of a path that never launched fails the run.
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when there is no CUDA device. The second-last
 lines are a JSON object of per-kernel results and the card's
@@ -55,6 +65,36 @@ MAX_QUERY_LENGTH = 32
 # ~1e-6); bf16 plain rounds scores and probabilities to bf16, which moves an
 # output of magnitude up to 2 by a bf16 ulp or two (ulp 7.8e-3 at 1)
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# kernel B (attention backward) shapes: the phrase tower at train batch 12 x
+# L 384, the query towers at L 64, the longest window (16 x L 512)
+ATTN_BWD_SHAPES = ((12, 12, 384, 64), (12, 12, 64, 64), (16, 12, 512, 64))
+# every head-dim instance (16, 32, 64, 128) at lengths that end in a
+# partial tile, for correctness only: kernel B against ATTN_BWD_RTOL, and
+# kernel A against attention_plain with FN_VS_AUTOGRAD_RTOL (in bf16
+# attention_plain rounds its probabilities to bf16)
+ATTN_EDGE_SHAPES = ((3, 2, 130, 16), (2, 3, 77, 32), (3, 2, 100, 64),
+                    (2, 2, 200, 128))
+# kernel B vs attention_bwd_plain, max |err| over max |ref| per gradient:
+# fp32 sums of the same products in another order (and __expf); in bf16
+# both round the fp32 result to bf16 once, so they sit a bf16 ulp
+# (2^-8 relative) apart at most
+ATTN_BWD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# AttentionCuda (kernels A + B) vs torch autograd of attention_plain: fp32
+# as above; in bf16 the plain forward rounds the scores and probabilities to
+# bf16 and autograd differentiates that rounded path
+FN_VS_AUTOGRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# phase 6: RC training at BERT-base width, the Makefile's loss weights
+# (Makefile:32-36) plus the teacher and a pre-batch ring of 2
+TRAIN_DOCS, DEV_DOCS = 40, 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_QUERY, TRAIN_STEPS = 12, 384, 64, 6
+TRAIN_LOSS = dict(lambda_kl=2.0, lambda_neg=2.0, lambda_flt=1.0)
+TRAINED = ("phrase", "query_start", "query_end", "filter")
+# one rc_loss through the kernels vs through the plain attention, same
+# weights, batch and dropout masks: bf16 towers whose attention rounds its
+# scores and probabilities to bf16 (plain) or not (kernels), through 12
+# layers, so the loss moves by up to a few 1e-3 and each tower's gradient
+# keeps its direction
+TRAIN_LOSS_RTOL, TRAIN_GRAD_COS = 3e-2, 0.98
 # kernel-path vs plain-path top-1 span score: towers in bf16 through 12
 # layers, scores are sums of 768 products of O(1) terms
 SCORE_RTOL = 2e-2
@@ -142,6 +182,92 @@ def phase_kernels():
             if err > tol or err_masked > tol:
                 raise AssertionError(f"attention_fwd disagrees with plain: {row}")
             results.append(row)
+    return results
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|, in fp32."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def phase_attention_bwd():
+    """Phase 2b: kernel B against ``attention_bwd_plain``, and the autograd
+    Function (kernels A + B) against torch autograd of ``attention_plain``."""
+    from densephrases_tpu_torch.models.attention import (
+        AttentionCuda, attention_bwd_plain, attention_cuda, attention_cuda_bwd,
+        attention_plain)
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    results = []
+    for shape in ATTN_BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            q, k, v, mask = attention_inputs(*shape, dtype, gen)
+            g = torch.randn(*shape, generator=gen).to("cuda", dtype)
+            got = attention_cuda_bwd(q, k, v, mask, g)
+            want = attention_bwd_plain(q, k, v, mask, g)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(x).all()) for x in got):
+                raise AssertionError(f"non-finite kernel B output at {shape}")
+            errs = {f"{n}_rel_err": rel_err(a, b)
+                    for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+            abs_err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, want))
+            row = {"shape": "x".join(map(str, shape)), "dtype": name,
+                   **errs, "max_abs_err": abs_err,
+                   "tol": ATTN_BWD_RTOL[name],
+                   "ms": cuda_ms(lambda: attention_cuda_bwd(q, k, v, mask, g),
+                                 iters=20),
+                   "plain_ms": cuda_ms(
+                       lambda: attention_bwd_plain(q, k, v, mask, g), iters=20)}
+            log("2b attention_bwd", **row)
+            if max(errs.values()) > ATTN_BWD_RTOL[name]:
+                raise AssertionError(f"attention_bwd disagrees with plain: {row}")
+            results.append(row)
+            del q, k, v, g, got, want
+    # every head-dim instance at ragged lengths (tails of partial tiles)
+    for shape in ATTN_EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            q, k, v, mask = attention_inputs(*shape, dtype, gen)
+            g = torch.randn(*shape, generator=gen).to("cuda", dtype)
+            errs = {"out_rel_err": rel_err(attention_cuda(q, k, v, mask),
+                                           attention_plain(q, k, v, mask))}
+            errs.update({f"{n}_rel_err": rel_err(a, b) for n, a, b in zip(
+                ("dq", "dk", "dv"), attention_cuda_bwd(q, k, v, mask, g),
+                attention_bwd_plain(q, k, v, mask, g))})
+            torch.cuda.synchronize()
+            tols = {part: FN_VS_AUTOGRAD_RTOL[name] if part == "out_rel_err"
+                    else ATTN_BWD_RTOL[name] for part in errs}
+            log("2b attention_bwd", check="edge", shape="x".join(map(str, shape)),
+                dtype=name, out_tol=tols["out_rel_err"],
+                grad_tol=tols["dq_rel_err"], **errs)
+            if not all(errs[part] <= tols[part] for part in errs):
+                raise AssertionError(f"attention kernels disagree with plain "
+                                     f"at {shape} {name}: {errs}")
+    # forward + backward through AttentionCuda vs torch autograd of the plain
+    # forward, at the phrase tower's training shape
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        q, k, v, mask = attention_inputs(*ATTN_BWD_SHAPES[0], dtype, gen)
+        g = torch.randn(*ATTN_BWD_SHAPES[0], generator=gen).to("cuda", dtype)
+        grads = {}
+        for impl in ("kernel", "autograd"):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            fn = AttentionCuda.apply if impl == "kernel" else attention_plain
+            out = fn(*leaves, mask)
+            out.backward(g)
+            grads[impl] = [out.detach()] + [t.grad for t in leaves]
+        torch.cuda.synchronize()
+        errs = {f"{n}_rel_err": rel_err(a, b) for n, a, b in zip(
+            ("out", "dq", "dk", "dv"), grads["kernel"], grads["autograd"])}
+        log("2b attention_bwd", check="function_vs_autograd", dtype=name,
+            tol=FN_VS_AUTOGRAD_RTOL[name], **errs)
+        if max(errs.values()) > FN_VS_AUTOGRAD_RTOL[name]:
+            raise AssertionError(f"AttentionCuda disagrees with autograd of "
+                                 f"attention_plain ({name}): {errs}")
+    torch.cuda.empty_cache()
     return results
 
 
@@ -386,6 +512,182 @@ def phase_ivf(store, params, config, tok, flat_model, queries, rng):
     return counts
 
 
+def synthetic_squad(rng, docs, words_per_q=(4, 13)):
+    """SQuAD-format rows from phase 3's corpus: one question per paragraph,
+    its words drawn from the paragraph, its answer a 1-5 word span of it."""
+    data = []
+    for doc in docs:
+        paras = []
+        for j, para in enumerate(doc["paragraphs"]):
+            pw = para.split(" ")
+            s = int(rng.integers(0, len(pw) - 6))
+            n = int(rng.integers(1, 6))
+            question = " ".join(rng.choice(pw[:-1], int(rng.integers(*words_per_q))))
+            paras.append({"context": para, "qas": [{
+                "id": f"{doc['doc_id']}-{j}", "question": question,
+                "answers": [{"text": " ".join(pw[s:s + n]),
+                             "answer_start": len(" ".join(pw[:s])) + (1 if s else 0)}]}]})
+        data.append({"title": doc["title"], "paragraphs": paras})
+    return {"data": data}
+
+
+def grads_by_tower(params, config, batch, impl, seed):
+    """One rc_loss forward + backward over the trainable parameters with a
+    fixed dropout seed: (loss, {tower: flat fp32 gradient})."""
+    from densephrases_tpu_torch.models.encoder import RCLossConfig, rc_loss
+
+    named = {n: p for n, p in params.named_parameters()
+             if n.split(".")[0] in TRAINED and not n.endswith(".word_emb")}
+    total, _ = rc_loss(params, config, batch, RCLossConfig(**TRAIN_LOSS),
+                       dropout=torch.Generator().manual_seed(seed),
+                       attn_impl=impl)
+    grads = torch.autograd.grad(total, list(named.values()), allow_unused=True)
+    by_tower = {}
+    for n, g in zip(named, grads):
+        if g is not None:
+            by_tower.setdefault(n.split(".")[0], []).append(g.float().ravel())
+    return float(total.detach()), {k: torch.cat(v) for k, v in by_tower.items()}
+
+
+def phase_train(tmp, params, config, tok, docs, mips, rng):
+    """Phase 6: ``train_rc.main`` at BERT-base width on a synthetic SQuAD
+    file, the saved encoder served, and one step through the kernels against
+    one through the plain attention. Returns the launch counts of A and B
+    in ``train_rc.main``."""
+    from densephrases_tpu_torch.cli import train_rc
+    from densephrases_tpu_torch.cli.common import load_encoder, save_encoder
+    from densephrases_tpu_torch.data.features import convert_context_to_features
+    from densephrases_tpu_torch.data.qa import load_rc_examples
+    from densephrases_tpu_torch.data.rc_dataset import batches, convert_rc_examples
+    from densephrases_tpu_torch.model import DensePhrases
+    from densephrases_tpu_torch.models.attention import ATTENTION_BWD, ATTENTION_FWD
+    from densephrases_tpu_torch.models.encoder import RCLossConfig
+    from densephrases_tpu_torch.train.cross_encoder import init_cross_params
+    from densephrases_tpu_torch.train.rc import (
+        create_train_state, make_optimizer, make_train_step)
+
+    paths = {}
+    for split, chunk in (("train", docs[:TRAIN_DOCS]),
+                         ("dev", docs[TRAIN_DOCS:TRAIN_DOCS + DEV_DOCS])):
+        paths[split] = os.path.join(tmp, f"{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump(synthetic_squad(rng, chunk), f)
+    init_dir, out_dir = os.path.join(tmp, "init"), os.path.join(tmp, "trained")
+    save_encoder(init_dir, params, config, tok)
+    argv = ["--load_dir", init_dir, "--train_file", paths["train"],
+            "--dev_file", paths["dev"], "--output_dir", out_dir,
+            "--lambda_neg", "2.0", "--lambda_flt", "1.0",  # Makefile:36
+            "--lambda_kl", "2.0", "--pbn_size", "2",
+            "--per_device_train_batch_size", str(TRAIN_BATCH),
+            "--max_seq_length", str(TRAIN_SEQ), "--max_query_length",
+            str(TRAIN_QUERY), "--warmup_steps", "1",
+            "--max_steps", str(TRAIN_STEPS), "--logging_steps", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ATTENTION_FWD.launches = 0
+    ATTENTION_BWD.launches = 0
+    t0 = time.perf_counter()
+    state, rates = train_rc.main(argv, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"A": ATTENTION_FWD.launches, "B": ATTENTION_BWD.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    parts = ("loss", "single_loss", "neg_loss", "filter_loss", "kl_loss")
+    if [r["step"] for r in rows] != list(range(1, TRAIN_STEPS + 1)) or not all(
+            np.isfinite(r[k]) for r in rows for k in parts):
+        raise AssertionError(f"train_rc: missing or non-finite losses: {rows}")
+    for r in rows:
+        log("6 train", step=r["step"], **{k: round(r[k], 4) for k in parts},
+            grad_norm=round(r["grad_norm"], 3))
+    # host clock between two logged steps; each log reads the loss, which
+    # waits for the step to finish
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])]
+    with open(os.path.join(out_dir, "eval_logger.txt")) as f:
+        eval_line = f.read().strip()
+
+    # kernel A: per step 36 tower forwards + 36 remat recomputes + 12 teacher
+    # layers; then the dev eval (two query towers per batch of 16 questions,
+    # the phrase tower per batch of 16 windows) and filter_test's one batch
+    dev = load_rc_examples(paths["dev"])
+    n_windows = sum(len(convert_context_to_features(
+        i, ex["title"], [ex["context"]], tok, max_seq_length=TRAIN_SEQ,
+        stride=128)[0]) for i, ex in enumerate(dev))
+    layers = config.num_hidden_layers
+    want = {"A": TRAIN_STEPS * 7 * layers + 2 * layers * -(-len(dev) // 16)
+            + layers * -(-n_windows // 16) + layers,
+            "B": TRAIN_STEPS * 3 * layers}
+    log("6 train", steps=TRAIN_STEPS, wall_s=round(wall, 3),
+        step_ms_median=float(np.median(step_ms)),
+        steps_per_s=1e3 / float(np.median(step_ms)),
+        peak_mem_gib=round(peak_gib, 3), a_launches=counts["A"],
+        a_expected=want["A"], b_launches=counts["B"], b_expected=want["B"],
+        eval=eval_line.replace("\t", " "),
+        keep_rate_at_0=rates[0])
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != expected {want}")
+
+    # the saved encoder serves
+    trained, cfg2, tok2 = load_encoder(out_dir, device=DEVICE)
+    answers, rets = DensePhrases(trained, cfg2, tok2, mips, serve_dtype="bf16",
+                                 max_query_length=MAX_QUERY_LENGTH).search(
+        [docs[0]["paragraphs"][0].split(" ")[3]], top_k=5, return_meta=True)
+    if not answers[0] or not all(np.isfinite(r["score"]) for r in rets[0]):
+        raise AssertionError("the trained encoder does not serve")
+    log("6 train", served=repr(answers[0][0][:40]))
+    del state, trained
+
+    # one state, one batch: the kernels against the plain attention
+    base, _, _ = load_encoder(init_dir, device=DEVICE)
+    teacher = init_cross_params(config, torch.Generator().manual_seed(43),
+                                device=DEVICE)
+    base.cross, base.qa_outputs = teacher.cross, teacher.qa_outputs
+    feats = convert_rc_examples(
+        load_rc_examples(paths["train"]), tok, max_seq_length=TRAIN_SEQ,
+        max_query_length=TRAIN_QUERY, with_teacher=True,
+        max_cross_length=min(TRAIN_SEQ + TRAIN_QUERY,
+                             config.max_position_embeddings))
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+             next(batches(feats, TRAIN_BATCH, seed=0)).items()}
+    loss, grad = {}, {}
+    for impl in ("cuda", "plain"):
+        loss[impl], grad[impl] = grads_by_tower(base, config, batch, impl, 5)
+    rel = abs(loss["cuda"] - loss["plain"]) / abs(loss["plain"])
+    cos = {t: float(torch.nn.functional.cosine_similarity(
+        grad["cuda"][t], grad["plain"][t], dim=0)) for t in grad["plain"]}
+    del grad
+    timing = {}
+    for impl in ("plain", "cuda", "cuda", "plain"):
+        opt = make_optimizer(lr=3e-5, warmup_steps=1, total_steps=100)
+        st = create_train_state(base, opt, pbn_size=2,
+                                batch_size=TRAIN_BATCH,
+                                hidden=config.hidden_size)
+        step = make_train_step(config, RCLossConfig(**TRAIN_LOSS), opt,
+                               attn_impl=impl)
+        times = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = step(st, batch, torch.Generator().manual_seed(i))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        timing.setdefault(impl, []).extend(times[1:])
+        del st, opt
+    row = {"loss_kernel": loss["cuda"], "loss_plain": loss["plain"],
+           "loss_rel_diff": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+           **{f"grad_cos_{t}": c for t, c in cos.items()},
+           "cos_min": TRAIN_GRAD_COS,
+           "step_ms_kernel": float(np.median(timing["cuda"])),
+           "step_ms_plain": float(np.median(timing["plain"]))}
+    log("6 compare", **row)
+    if rel > TRAIN_LOSS_RTOL or min(cos.values()) < TRAIN_GRAD_COS:
+        raise AssertionError(f"train step: kernels and plain disagree: {row}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
@@ -403,7 +705,8 @@ def main():
     from densephrases_tpu_torch.index.oracle import check_top1
     from densephrases_tpu_torch.index.search import MIPS
     from densephrases_tpu_torch.model import DensePhrases
-    from densephrases_tpu_torch.models.attention import ATTENTION_FWD
+    from densephrases_tpu_torch.models.attention import (
+        ATTENTION_BWD, ATTENTION_FWD)
     from densephrases_tpu_torch.ops.ivf_pack import (
         IVF_PACK_SCORE, PQ_PACK_SCORE)
     from densephrases_tpu_torch.models.bert import BertConfig
@@ -420,6 +723,7 @@ def main():
 
     # ---- 1. build: one nvcc per source, all started together
     kernels = {"attention_fwd": ATTENTION_FWD,
+               "attention_bwd": ATTENTION_BWD,
                "ivf_pack_score": IVF_PACK_SCORE,
                "pq_pack_score": PQ_PACK_SCORE}
     t0 = time.perf_counter()
@@ -437,6 +741,7 @@ def main():
 
     # ---- 2. kernels vs plain
     kernel_rows = phase_kernels()
+    bwd_rows = phase_attention_bwd()
     ivf_rows = phase_ivf_kernels()
 
     # ---- 3. dump (main path starts: launch counters from zero)
@@ -541,17 +846,31 @@ def main():
     # ---- 5. ivf (main path: C and D launch counters from zero)
     ivf_launches = phase_ivf(store, params, config, tok, model, queries, rng)
 
+    # ---- 6. train (main path: A and B launch counters from zero)
+    train_launches = phase_train(tmp, params, config, tok, docs, mips, rng)
+
     serve_row = next(r for r in kernel_rows
                      if r["shape"] == "64x12x32x64" and r["dtype"] == "bfloat16")
+    bwd_row = next(r for r in bwd_rows
+                   if r["shape"] == "12x12x384x64" and r["dtype"] == "bfloat16")
     c_row, d_row = ivf_rows["C"][0], ivf_rows["D"][0]
     print(json.dumps({"kernels": [{
         "name": "attention_fwd", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "densephrases_tpu/models/attention.py:44",
-        "launches": main_path_launches,
+        "launches": main_path_launches + train_launches["A"],
+        "launches_by_path": {"dump_serve": main_path_launches,
+                             "train": train_launches["A"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": serve_row["ms"], "plain_ms": serve_row["plain_ms"],
         "at": "B=64 H=12 L=32 D=64 bf16"}, {
+        "name": "attention_bwd", "route": "cuda",
+        "source": "densephrases_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "densephrases_tpu/models/attention.py:94",
+        "launches": train_launches["B"],
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
+        "at": "B=12 H=12 L=384 D=64 bf16"}, {
         "name": "ivf_pack_score", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/ivf_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:94",

@@ -36,13 +36,14 @@ logger = logging.getLogger(__name__)
 TOKENIZE_AHEAD = 4  # bound, in docs, on the tokenizer→encoder queue
 
 
-def _phrase_forward(params: EncoderParams, ids, am, tt):
+def _phrase_forward(params: EncoderParams, ids, am, tt,
+                    attn_impl: str = "auto"):
     """One batch of windows → host arrays (start [B, L, H], filter start and
     end logits [B, L]) in a single device→host copy."""
     dev = params.device
     start, _end, f_s, f_e = embed_phrase(
         params, torch.as_tensor(ids, device=dev), torch.as_tensor(am, device=dev),
-        torch.as_tensor(tt, device=dev))
+        torch.as_tensor(tt, device=dev), attn_impl=attn_impl)
     out = torch.cat([start, f_s[..., None], f_e[..., None]], -1).cpu().numpy()
     return out[..., :-2], out[..., -2], out[..., -1]
 

@@ -1,4 +1,4 @@
-"""BERT tower as a torch ``nn.Module``, for inference.
+"""BERT tower as a torch ``nn.Module``, for inference and training.
 
 The counterpart of ``densephrases_tpu/models/bert.py``, rounded at the same
 points so that bf16 parity holds:
@@ -14,8 +14,20 @@ points so that bf16 parity holds:
 - attention goes through ``models/attention.py`` (the CUDA kernel for CUDA
   tensors).
 
-The reference's stacked layer axis becomes an ``nn.ModuleList``. There is no
-dropout or remat: the port does not train yet.
+The reference's stacked layer axis becomes an ``nn.ModuleList``. For
+training, ``BertModel.forward`` takes a dropout generator and a remat mode:
+
+- dropout is the reference's ``_dropout`` (bert.py:112-131): inverted
+  dropout from uint8 threshold masks, after the embedding layer norm and
+  after the attention-out and FFN-out projections. There is no dropout on
+  the attention probabilities, as in the reference;
+- remat "full" recomputes each layer in the backward
+  (``torch.utils.checkpoint``), "none" keeps its activations.
+  ``torch.utils.checkpoint`` restores the global RNG state only, not an
+  explicit generator, so each layer's dropout seed is drawn from the step's
+  generator before the layer runs (as the reference splits ``layer_rngs``
+  before its scan, bert.py:189) and the layer builds its bits from that
+  seed: a recomputed layer draws the same masks.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from densephrases_tpu_torch.models.attention import attention
 
@@ -64,7 +77,7 @@ class BertConfig:
 
 
 def _param(*shape) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+    return nn.Parameter(torch.zeros(*shape))
 
 
 def _layer_norm(x, scale, bias, eps):
@@ -74,6 +87,38 @@ def _layer_norm(x, scale, bias, eps):
     out = (xf - mean) * torch.rsqrt(var + eps)
     return (out * scale.to(torch.float32)
             + bias.to(torch.float32)).to(x.dtype)
+
+
+def dropout_threshold(rate: float) -> int:
+    """The reference's uint8 threshold: round(rate * 256) clamped to
+    [1, 255], so tiny rates still drop ~1/256 and rates near 1 keep some."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate must be in (0, 1): {rate}")
+    return min(max(int(round(rate * 256)), 1), 255)
+
+
+def dropout_from_bits(x, rate: float, bits):
+    """Inverted dropout from uint8 bits of x's shape (bert.py:112-131): keep
+    where bits >= thr, scaled by 1 / keep_p in x's dtype, keep_p =
+    (256 - thr) / 256, computed as the reference does."""
+    thr = dropout_threshold(rate)
+    scale = torch.tensor(1.0 / ((256 - thr) / 256.0), dtype=x.dtype,
+                         device=x.device)
+    return torch.where(bits >= thr, x * scale, torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """A 63-bit seed from a (CPU) generator."""
+    return int(torch.randint(0, 2 ** 63 - 1, (), generator=generator))
+
+
+def dropout_bits(shape, seed: int, device) -> torch.Tensor:
+    """Uniform uint8 bits of ``shape`` on ``device``, from a generator on that
+    device seeded with ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, 256, tuple(shape), dtype=torch.uint8,
+                         device=device, generator=gen)
 
 
 # Weight matrices drawn from N(0, initializer_range); the rest are biases
@@ -96,8 +141,14 @@ class BertLayer(nn.Module):
         self.ffn_ln_scale, self.ffn_ln_bias = _param(h), _param(h)
 
     def forward(self, x, mask, config: BertConfig, attn_impl: str,
-                compute_dtype: torch.dtype):
+                compute_dtype: torch.dtype, dropout_seed: Optional[int] = None):
+        """dropout_seed: None for no dropout; else the seed of this layer's
+        two masks (attention-out, then FFN-out)."""
         b, l, _ = x.shape
+        rate = config.hidden_dropout_prob
+        if dropout_seed is not None:
+            bits = dropout_bits((2, b, l, config.hidden_size), dropout_seed,
+                                x.device)
         nh, hd = config.num_attention_heads, config.head_dim
         eps = config.layer_norm_eps
 
@@ -113,6 +164,8 @@ class BertLayer(nn.Module):
         ctx = attention(q, k, v, mask, impl=attn_impl)
         ctx = ctx.transpose(1, 2).reshape(b, l, nh * hd)
         attn_out = dense(ctx, self.attn_out_w, self.attn_out_b)
+        if dropout_seed is not None:
+            attn_out = dropout_from_bits(attn_out, rate, bits[0])
         attn_out = _layer_norm(x + attn_out, self.attn_ln_scale,
                                self.attn_ln_bias, eps)
 
@@ -122,6 +175,8 @@ class BertLayer(nn.Module):
         else:
             ffn = F.gelu(ffn.to(torch.float32)).to(compute_dtype)
         ffn = dense(ffn, self.ffn_out_w, self.ffn_out_b)
+        if dropout_seed is not None:
+            ffn = dropout_from_bits(ffn, rate, bits[1])
         return _layer_norm(attn_out + ffn, self.ffn_ln_scale,
                            self.ffn_ln_bias, eps)
 
@@ -162,15 +217,26 @@ class BertModel(nn.Module):
                 p.zero_()
         return self
 
-    @torch.no_grad()
     def forward(self, input_ids, attention_mask,
                 token_type_ids: Optional[torch.Tensor] = None, *,
                 attn_impl: str = "auto",
-                compute_dtype: torch.dtype = torch.bfloat16):
+                compute_dtype: torch.dtype = torch.bfloat16,
+                dropout: Optional[torch.Generator] = None,
+                remat: str = "none"):
         """input_ids, attention_mask (1 = real token), token_type_ids:
         [B, L] on the module's device. Returns the sequence output
-        [B, L, H] in fp32."""
+        [B, L, H] in fp32.
+
+        dropout: None (or ``hidden_dropout_prob`` 0) for the deterministic
+        forward; else a CPU generator that this call draws its seeds from,
+        one for the embedding dropout and then one per layer.
+        remat: "full" recomputes each layer in the backward, "none" does
+        not; "dots" (keep the products, recompute the rest) is not ported."""
         cfg = self.config
+        if remat not in ("full", "none"):
+            if remat == "dots":
+                raise NotImplementedError("remat='dots' is not ported")
+            raise ValueError(f"unknown remat mode {remat!r}")
         b, l = input_ids.shape
         if l > cfg.max_position_embeddings:
             raise ValueError(
@@ -183,8 +249,18 @@ class BertModel(nn.Module):
         x = (self.word_emb[input_ids] + self.pos_emb[positions][None]
              + self.type_emb[token_type_ids.long()])
         x = _layer_norm(x, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
+        seeds = [None] * len(self.layers)
+        if dropout is not None and cfg.hidden_dropout_prob > 0:
+            x = dropout_from_bits(x, cfg.hidden_dropout_prob, dropout_bits(
+                x.shape, draw_seed(dropout), x.device))
+            seeds = [draw_seed(dropout) for _ in self.layers]
         x = x.to(compute_dtype)
         mask = attention_mask.to(torch.float32)
-        for layer in self.layers:
-            x = layer(x, mask, cfg, attn_impl, compute_dtype)
+        recompute = remat == "full" and torch.is_grad_enabled()
+        for layer, seed in zip(self.layers, seeds):
+            if recompute:
+                x = checkpoint(layer, x, mask, cfg, attn_impl, compute_dtype,
+                               seed, use_reentrant=False)
+            else:
+                x = layer(x, mask, cfg, attn_impl, compute_dtype, seed)
         return x.to(torch.float32)

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's parameter tree → the port's modules.
+"""Weight bridge between the JAX package's parameter tree and the port's
+modules, both ways.
 
 Input is the reference's params pytree with every leaf already turned into
 a numpy array (``jax.tree.map(np.asarray, params)``), so this module needs
@@ -8,10 +9,15 @@ no jax. The tree's layout:
   pos_emb, type_emb, ln_scale, ln_bias}``;
 - ``layers/<name>`` stacked on a leading [num_layers] axis → unstacked
   into ``BertModel.layers[i].<name>``;
-- ``filter/{w,b}`` → ``EncoderParams.filter.{w,b}``.
+- ``filter/{w,b}`` → ``EncoderParams.filter.{w,b}``;
+- with a teacher, ``cross`` (a tower) and ``qa_outputs/{w,b}``.
 
 Weight matrices stay ``[in, out]``: the port multiplies ``x @ w`` as the
-reference does, so nothing is transposed.
+reference does, so nothing is transposed. ``encoder_to_jax`` goes back: the
+port's modules → a numpy tree in the reference's layout with the layers
+re-stacked, so that tests compare gradients and updated parameters in the
+reference's own layout. ``reference_path`` names a port parameter by its
+path in that tree.
 """
 
 from __future__ import annotations
@@ -22,11 +28,12 @@ import numpy as np
 import torch
 
 from densephrases_tpu_torch.models.bert import BertConfig, BertModel
-from densephrases_tpu_torch.models.encoder import TOWERS, EncoderParams
+from densephrases_tpu_torch.models.encoder import TEACHER, TOWERS, EncoderParams
 from densephrases_tpu_torch.utils.device import resolve_device
 
 _EMBED = {"word": "word_emb", "pos": "pos_emb", "type": "type_emb",
           "ln_scale": "ln_scale", "ln_bias": "ln_bias"}
+_EMBED_BACK = {v: k for k, v in _EMBED.items()}
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -61,12 +68,52 @@ def _load_bert(model: BertModel, tree: Mapping, where: str):
 def encoder_from_jax(tree: Mapping, config: BertConfig, device="cpu",
                      dtype: Optional[torch.dtype] = None) -> EncoderParams:
     """``init_encoder_params``-style tree (``phrase``, ``query_start``,
-    ``query_end``, ``filter``) → ``EncoderParams``. Teacher entries
-    (``cross``, ``qa_outputs``) are training-only and not bridged. ``dtype``
-    None keeps the tree's dtype."""
-    params = EncoderParams(config)
-    for name in TOWERS:
+    ``query_end``, ``filter``, and ``cross`` + ``qa_outputs`` when the tree
+    has a teacher) → ``EncoderParams``. ``dtype`` None keeps the tree's
+    dtype."""
+    with_teacher = all(k in tree for k in TEACHER)
+    params = EncoderParams(config, with_teacher=with_teacher)
+    towers = TOWERS + (("cross",) if with_teacher else ())
+    for name in towers:
         _load_bert(getattr(params, name), tree[name], name)
-    _copy(params.filter.w, tree["filter"]["w"], "filter/w")
-    _copy(params.filter.b, tree["filter"]["b"], "filter/b")
+    for head in ("filter", "qa_outputs") if with_teacher else ("filter",):
+        for leaf in ("w", "b"):
+            _copy(getattr(getattr(params, head), leaf), tree[head][leaf],
+                  f"{head}/{leaf}")
     return params.to(device=resolve_device(device), dtype=dtype)
+
+
+def reference_path(name: str) -> str:
+    """A port parameter name → its path in the reference's tree:
+    ``phrase.word_emb`` → ``phrase/embed/word``, ``phrase.layers.3.q_w`` →
+    ``phrase/layers/q_w`` (the stacked leaf), ``filter.w`` → ``filter/w``."""
+    parts = name.split(".")
+    if len(parts) == 2 and parts[1] in _EMBED_BACK:
+        return f"{parts[0]}/embed/{_EMBED_BACK[parts[1]]}"
+    if len(parts) == 4 and parts[1] == "layers":
+        return f"{parts[0]}/layers/{parts[3]}"
+    return "/".join(parts)
+
+
+def named_to_jax(named) -> dict:
+    """(port name, tensor) pairs → a nested dict of numpy arrays in the
+    reference's layout, layers re-stacked on a leading axis (in the order
+    given). bf16 becomes fp32."""
+    leaves: dict = {}
+    for name, t in named:
+        leaves.setdefault(reference_path(name), []).append(
+            t.detach().to("cpu", torch.float32).numpy())
+    tree: dict = {}
+    for path, arrs in leaves.items():
+        *where, leaf = path.split("/")
+        node = tree
+        for key in where:
+            node = node.setdefault(key, {})
+        node[leaf] = np.stack(arrs) if "/layers/" in f"/{path}" else arrs[0]
+    return tree
+
+
+def encoder_to_jax(params: torch.nn.Module) -> dict:
+    """The port's modules (``EncoderParams``, or any module whose parameters
+    follow its names) → the reference's params tree, as numpy arrays."""
+    return named_to_jax(params.named_parameters())

@@ -63,7 +63,8 @@ def test_tower_matches_fp32(cfgs, jax_params, bridged, tower):
                                   compute_dtype=torch.float32)
     # fp32 throughout on both sides; LN outputs are O(1), so 1e-5 absolute
     # covers the different summation orders
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=1e-5)
 
 
 def test_embed_query_matches_bf16(cfgs, jax_params, bridged):
@@ -124,8 +125,8 @@ def test_mask_invariance(cfgs, bridged):
     out = bridged.phrase(*_t(ids, mask), compute_dtype=torch.float32)
     out2 = bridged.phrase(*_t(ids2, mask), compute_dtype=torch.float32)
     assert out.shape == (b, l, cfg.hidden_size)
-    np.testing.assert_allclose(out[:, :12].numpy(), out2[:, :12].numpy(),
-                               atol=1e-5)
+    np.testing.assert_allclose(out[:, :12].detach().numpy(),
+                               out2[:, :12].detach().numpy(), atol=1e-5)
 
 
 def test_bridge_to_bf16(cfgs, jax_params):
@@ -134,7 +135,7 @@ def test_bridge_to_bf16(cfgs, jax_params):
     got = params.query_end.layers[1].ffn_in_w
     assert got.dtype == torch.bfloat16
     want = jnp.asarray(tree["query_end"]["layers"]["ffn_in_w"][1], jnp.bfloat16)
-    np.testing.assert_array_equal(got.float().numpy(),
+    np.testing.assert_array_equal(got.detach().float().numpy(),
                                   np.asarray(want.astype(jnp.float32)))
 
 
