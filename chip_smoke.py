@@ -10,16 +10,22 @@ written kernel on that path against its plain PyTorch version:
                  one nvcc per source, all started together
   2. kernels     each kernel vs its plain version at the main path's shapes,
                  with the max error against a stated tolerance and both times:
-                 attention (A), and the IVF list scans (C: SQ8 / SQ4, D: PQ
-                 8-bit / 4-bit) on a seeded 1M x 768 index of 4,096 lists
+                 attention (A, and its row logsumexp), and the IVF list scans
+                 (C: SQ8 / SQ4, D: PQ 8-bit / 4-bit) on a seeded 1M x 768
+                 index of 4,096 lists; beside them each row's bound (the
+                 card's peak bytes/s and ops/s against the work) and, for A
+                 and B, one PyTorch call of the same function as a yardstick
+                 (``scaled_dot_product_attention`` and its backward; timed
+                 here only, never called by the port)
   3. dump        ``dump_phrases`` of a seeded synthetic corpus into a store
   4. serve       ``DensePhrases.search`` for all four units, the fused server
                  over 4 batches of 64 queries, the brute-force span oracle,
                  and the kernel path's answers against the plain path's
-  2b. attn bwd   kernel B vs ``attention_bwd_plain`` (dq, dk, dv) at the
-                 training shapes, bf16 and fp32; A and B at ragged lengths
-                 for every head dim; the autograd Function (kernels A + B)
-                 vs torch autograd of the plain forward
+  2b. attn bwd   kernel B (fed A's output and logsumexp) vs
+                 ``attention_bwd_plain`` (dq, dk, dv) at the training shapes,
+                 bf16 and fp32; A and B at ragged lengths for every head dim;
+                 the autograd Function (kernels A + B) vs torch autograd of
+                 the plain forward
   5. ivf         ``IVFIndex.build`` of IVF-SQ8 / OPQ96 / SQ4 / OPQ192x4 on
                  phase 3's store, ``DensePhrases.search`` over them, the full-
                  probe check against phase 4's flat path, recall@10 and ms per
@@ -46,6 +52,7 @@ Run from the repository root:  python3 chip_smoke.py
 import concurrent.futures
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -65,15 +72,26 @@ MAX_QUERY_LENGTH = 32
 # ~1e-6); bf16 plain rounds scores and probabilities to bf16, which moves an
 # output of magnitude up to 2 by a bf16 ulp or two (ulp 7.8e-3 at 1)
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# kernel A (attention forward) shapes: one query tower at serve batch 64
+# (L 32) and both towers' batches together; at train batch 12 the query
+# towers (L 64), the phrase tower (L 384) and the teacher's cross input
+# (L 448, TrainOptions); a dump batch of 16 windows of 512 tokens
+ATTN_FWD_SHAPES = ((64, 12, 32, 64), (128, 12, 32, 64), (12, 12, 64, 64),
+                   (12, 12, 384, 64), (12, 12, 448, 64), (16, 12, 512, 64))
 # kernel B (attention backward) shapes: the phrase tower at train batch 12 x
 # L 384, the query towers at L 64, the longest window (16 x L 512)
 ATTN_BWD_SHAPES = ((12, 12, 384, 64), (12, 12, 64, 64), (16, 12, 512, 64))
 # every head-dim instance (16, 32, 64, 128) at lengths that end in a
 # partial tile, for correctness only: kernel B against ATTN_BWD_RTOL, and
 # kernel A against attention_plain with FN_VS_AUTOGRAD_RTOL (in bf16
-# attention_plain rounds its probabilities to bf16)
+# attention_plain rounds its probabilities to bf16); the last two take
+# kernel A's blocks of 2 cells (L <= 32) with an odd number of cells, so the
+# last block holds a cell past the end
 ATTN_EDGE_SHAPES = ((3, 2, 130, 16), (2, 3, 77, 32), (3, 2, 100, 64),
-                    (2, 2, 200, 128))
+                    (2, 2, 200, 128), (5, 3, 13, 64), (3, 3, 29, 32))
+# kernel A's logsumexp vs attention_lse_plain, max |err|: fp32 sums of
+# exact products in another order and __expf (~1e-6 of |lse| ~ 10)
+LSE_TOL = 1e-4
 # kernel B vs attention_bwd_plain, max |err| over max |ref| per gradient:
 # fp32 sums of the same products in another order (and __expf); in bf16
 # both round the fp32 result to bf16 once, so they sit a bf16 ulp
@@ -111,6 +129,12 @@ IVF_CLUSTERS, SERVE_NPROBE = 128, 16
 # and differ only in summation order, so a different top-1 span must be a
 # near-tie within fp32 rounding of the span score
 FULL_PROBE_RTOL = 1e-4
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense rates at
+# 700 W): a kernel's bound is the larger of the bytes it must move over the
+# memory rate and its operations over the peak rate for their type (bf16
+# products on the tensor cores; fp32 products and adds on the CUDA cores)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def log(phase, **kv):
@@ -123,6 +147,33 @@ def nvidia_smi():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(build_log):
+    """One dict per compiled function from ``nvcc -Xptxas -v``: its
+    (demangled, where c++filt is found) name, registers, spilled bytes and
+    static shared memory."""
+    blocks = build_log.split("Compiling entry function '")[1:]
+    names = [b.split("'", 1)[0] for b in blocks]
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    out = []
+    for name, block in zip(names, blocks):
+        name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          block)
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        out.append({"function": name.split("(")[0].replace(" ", ""),
+                    "registers": int(regs.group(1)) if regs else -1,
+                    "spill_bytes": (int(spill.group(1)) + int(spill.group(2))
+                                    if spill else -1),
+                    "static_smem": int(smem.group(1)) if smem else 0})
+    return out
 
 
 def cuda_ms(fn, iters=50, warmup=3):
@@ -139,6 +190,31 @@ def cuda_ms(fn, iters=50, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def bound(ops, nbytes, kind):
+    """(bound_ms, bound_by): the least time the card could take for work of
+    ``ops`` operations of type ``kind`` that reads and writes ``nbytes``
+    (each input read once, each output written once)."""
+    t_ops, t_bytes = ops / PEAK_OPS_PER_S[kind], nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def attention_bound(shape, dtype, tensors, flops_per_pair):
+    """Kernels A and B: ``tensors`` [B, H, L, D] tensors of ``dtype`` read or
+    written once, plus the fp32 [B, L] mask; ``flops_per_pair`` x B H L^2 D
+    operations (A: 4, B: 10, the reference's CostEstimate,
+    densephrases_tpu/models/attention.py:85-89, :148-152)."""
+    b, h, l, d = shape
+    esize = torch.tensor([], dtype=dtype).element_size()
+    return bound(flops_per_pair * b * h * l * l * d,
+                 tensors * b * h * l * d * esize + 4 * b * l,
+                 str(dtype).split(".")[-1])
+
+
+def sdpa_bias(mask, dtype):
+    """The additive mask as ``scaled_dot_product_attention`` takes it."""
+    return ((1 - mask) * -1e9)[:, None, None, :].to(dtype)
+
+
 def attention_inputs(b, h, l, d, dtype, gen):
     """q, k, v ~ N(0, 1); ragged masks, the last row fully masked (the
     dump's all-zero pad windows)."""
@@ -153,33 +229,47 @@ def attention_inputs(b, h, l, d, dtype, gen):
 
 def phase_kernels():
     from densephrases_tpu_torch.models.attention import (
-        attention_cuda, attention_plain)
+        attention_cuda, attention_lse_plain, attention_plain)
 
     gen = torch.Generator().manual_seed(SEED)
     results = []
-    # (64, 12, 32, 64): one query tower at serve batch 64; (128, ...): the two
-    # towers' batches together; (16, 12, 512, 64): a dump batch of windows
-    for shape in ((64, 12, 32, 64), (128, 12, 32, 64), (16, 12, 512, 64)):
+    for shape in ATTN_FWD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, mask = attention_inputs(*shape, dtype, gen)
             out = attention_cuda(q, k, v, mask)
             ref = attention_plain(q, k, v, mask)
+            # the training forward also writes the row logsumexp
+            out_lse, lse = attention_cuda(q, k, v, mask, return_lse=True)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"non-finite kernel output at {shape}")
             err = float((out.float() - ref.float()).abs().max())
+            lse_err = float((lse - attention_lse_plain(q, k, mask)).abs().max())
+            if not torch.equal(out_lse, out):
+                raise AssertionError(f"the lse launch changed out at {shape}")
             tol = KERNEL_TOL[str(dtype).split(".")[-1]]
             # fully masked row: the uniform average of V, as in the reference
             uniform = v[-1].float().mean(dim=1, keepdim=True)
             err_masked = float((out[-1].float() - uniform).abs().max())
+            # the yardstick: one PyTorch call of the same function (timed
+            # here only; the port never calls it)
+            bias = sdpa_bias(mask, dtype)
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias)
+            library_err = float((sdpa().float() - ref.float()).abs().max())
             ms = cuda_ms(lambda: attention_cuda(q, k, v, mask))
             plain_ms = cuda_ms(lambda: attention_plain(q, k, v, mask))
+            library_ms = cuda_ms(sdpa)
+            bound_ms, bound_by = attention_bound(shape, dtype, 4, 4)
             row = {"shape": "x".join(map(str, shape)),
                    "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-                   "tol": tol, "masked_row_err": err_masked, "ms": ms,
-                   "plain_ms": plain_ms}
+                   "tol": tol, "masked_row_err": err_masked,
+                   "lse_err": lse_err, "lse_tol": LSE_TOL, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library_err": library_err, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "share_of_bound": bound_ms / ms}
             log("2 kernels", kernel="attention_fwd", **row)
-            if err > tol or err_masked > tol:
+            if err > tol or err_masked > tol or lse_err > LSE_TOL:
                 raise AssertionError(f"attention_fwd disagrees with plain: {row}")
             results.append(row)
     return results
@@ -196,7 +286,7 @@ def phase_attention_bwd():
     Function (kernels A + B) against torch autograd of ``attention_plain``."""
     from densephrases_tpu_torch.models.attention import (
         AttentionCuda, attention_bwd_plain, attention_cuda, attention_cuda_bwd,
-        attention_plain)
+        attention_lse_plain, attention_plain)
 
     gen = torch.Generator().manual_seed(SEED + 1)
     results = []
@@ -205,7 +295,9 @@ def phase_attention_bwd():
             name = str(dtype).split(".")[-1]
             q, k, v, mask = attention_inputs(*shape, dtype, gen)
             g = torch.randn(*shape, generator=gen).to("cuda", dtype)
-            got = attention_cuda_bwd(q, k, v, mask, g)
+            # B takes A's output and logsumexp, as AttentionCuda saves them
+            out, lse = attention_cuda(q, k, v, mask, return_lse=True)
+            got = attention_cuda_bwd(q, k, v, mask, g, out, lse)
             want = attention_bwd_plain(q, k, v, mask, g)
             torch.cuda.synchronize()
             if not all(bool(torch.isfinite(x).all()) for x in got):
@@ -214,36 +306,50 @@ def phase_attention_bwd():
                     for n, a, b in zip(("dq", "dk", "dv"), got, want)}
             abs_err = max(float((a.float() - b.float()).abs().max())
                           for a, b in zip(got, want))
+            # the yardstick: autograd through one PyTorch call of the same
+            # forward, the forward outside the timed loop
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=sdpa_bias(mask, dtype))
+            ms = cuda_ms(lambda: attention_cuda_bwd(q, k, v, mask, g, out, lse),
+                         iters=20)
+            bound_ms, bound_by = attention_bound(shape, dtype, 7, 10)
             row = {"shape": "x".join(map(str, shape)), "dtype": name,
                    **errs, "max_abs_err": abs_err,
-                   "tol": ATTN_BWD_RTOL[name],
-                   "ms": cuda_ms(lambda: attention_cuda_bwd(q, k, v, mask, g),
-                                 iters=20),
+                   "tol": ATTN_BWD_RTOL[name], "ms": ms,
                    "plain_ms": cuda_ms(
-                       lambda: attention_bwd_plain(q, k, v, mask, g), iters=20)}
+                       lambda: attention_bwd_plain(q, k, v, mask, g), iters=20),
+                   "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                       lib_out, leaves, g, retain_graph=True), iters=20),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "share_of_bound": bound_ms / ms}
             log("2b attention_bwd", **row)
             if max(errs.values()) > ATTN_BWD_RTOL[name]:
                 raise AssertionError(f"attention_bwd disagrees with plain: {row}")
             results.append(row)
-            del q, k, v, g, got, want
+            del q, k, v, g, out, lse, got, want, leaves, lib_out
     # every head-dim instance at ragged lengths (tails of partial tiles)
     for shape in ATTN_EDGE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             q, k, v, mask = attention_inputs(*shape, dtype, gen)
             g = torch.randn(*shape, generator=gen).to("cuda", dtype)
-            errs = {"out_rel_err": rel_err(attention_cuda(q, k, v, mask),
-                                           attention_plain(q, k, v, mask))}
+            out, lse = attention_cuda(q, k, v, mask, return_lse=True)
+            errs = {"out_rel_err": rel_err(out, attention_plain(q, k, v, mask))}
             errs.update({f"{n}_rel_err": rel_err(a, b) for n, a, b in zip(
-                ("dq", "dk", "dv"), attention_cuda_bwd(q, k, v, mask, g),
+                ("dq", "dk", "dv"),
+                attention_cuda_bwd(q, k, v, mask, g, out, lse),
                 attention_bwd_plain(q, k, v, mask, g))})
+            lse_err = float((lse - attention_lse_plain(q, k, mask)).abs().max())
             torch.cuda.synchronize()
             tols = {part: FN_VS_AUTOGRAD_RTOL[name] if part == "out_rel_err"
                     else ATTN_BWD_RTOL[name] for part in errs}
             log("2b attention_bwd", check="edge", shape="x".join(map(str, shape)),
                 dtype=name, out_tol=tols["out_rel_err"],
-                grad_tol=tols["dq_rel_err"], **errs)
-            if not all(errs[part] <= tols[part] for part in errs):
+                grad_tol=tols["dq_rel_err"], lse_err=lse_err, lse_tol=LSE_TOL,
+                **errs)
+            if not all(errs[part] <= tols[part] for part in errs) \
+                    or lse_err > LSE_TOL:
                 raise AssertionError(f"attention kernels disagree with plain "
                                      f"at {shape} {name}: {errs}")
     # forward + backward through AttentionCuda vs torch autograd of the plain
@@ -307,9 +413,15 @@ def random_codes(ivf, cols, dtype):
     return codes
 
 
-def check_ivf_kernel(name, launch, plain, ivf, at):
+def check_ivf_kernel(name, launch, plain, ivf, at, row_bytes, in_bytes,
+                     ops_per_col, kind):
     """One kernel against its plain twin on the batch's block table: the
-    valid columns agree and stay finite in a NaN-filled output buffer."""
+    valid columns agree and stay finite in a NaN-filled output buffer. The
+    bound counts the valid rows' codes (``row_bytes`` each), the queries or
+    LUTs (``in_bytes``), the block table and the fp32 scores of the valid
+    columns, and ``ops_per_col`` operations of ``kind`` per valid column.
+    No single PyTorch call computes either scan, so there is no
+    ``library_ms``."""
     valid = ivf["total"] * 32
     out = torch.full((IVF_BATCH, ivf["budget"] * 32), float("nan"),
                      device=DEVICE)
@@ -322,10 +434,15 @@ def check_ivf_kernel(name, launch, plain, ivf, at):
         raise AssertionError(f"{name}: non-finite values in valid columns")
     err = float((got[:, :valid] - ref[:, :valid]).abs().max())
     tol = IVF_KERNEL_RTOL * float(ref[:, :valid].abs().max())
+    ms = cuda_ms(lambda: launch(None), iters=20)
+    bound_ms, bound_by = bound(
+        ops_per_col * valid, valid * row_bytes + in_bytes
+        + 4 * ivf["blk"].numel() + 4 * IVF_BATCH * valid, kind)
     row = {"at": at, "rows": valid, "budget_blocks": ivf["budget"],
-           "max_abs_err": err, "tol": tol,
-           "ms": cuda_ms(lambda: launch(None), iters=20),
-           "plain_ms": cuda_ms(plain, iters=3, warmup=1)}
+           "max_abs_err": err, "tol": tol, "ms": ms,
+           "plain_ms": cuda_ms(plain, iters=3, warmup=1), "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / ms}
     log("2 kernels", kernel=name, **row)
     if err > tol:
         raise AssertionError(f"{name} disagrees with plain: {row}")
@@ -340,17 +457,20 @@ def phase_ivf_kernels():
     q_bf, blk = ivf["q"].to(torch.bfloat16), ivf["blk"]
     rows = {"C": [], "D": []}
     for sq4 in (False, True):
-        codes = random_codes(ivf, IVF_DIM // 2 if sq4 else IVF_DIM,
-                             torch.int8)
+        cols = IVF_DIM // 2 if sq4 else IVF_DIM
+        codes = random_codes(ivf, cols, torch.int8)
         rows["C"].append(check_ivf_kernel(
             "ivf_pack_score",
             lambda out: pack.pack_score(q_bf, codes, blk, sq4=sq4, out=out),
             lambda: pack.pack_score_plain(q_bf, codes, blk, sq4=sq4), ivf,
             f"B={IVF_BATCH} D={IVF_DIM} {'SQ4' if sq4 else 'SQ8'}, "
-            f"1M rows, {IVF_LISTS} lists, nprobe {IVF_NPROBE}"))
+            f"1M rows, {IVF_LISTS} lists, nprobe {IVF_NPROBE}",
+            row_bytes=cols, in_bytes=2 * q_bf.numel(),
+            ops_per_col=2 * IVF_BATCH * IVF_DIM, kind="bfloat16"))
         del codes
     for m, ksub in ((96, 256), (192, 16)):
-        codes = random_codes(ivf, m if ksub == 256 else m // 2, torch.uint8)
+        cols = m if ksub == 256 else m // 2
+        codes = random_codes(ivf, cols, torch.uint8)
         lut = torch.randn(IVF_BATCH, m, ksub, device=DEVICE,
                           generator=ivf["gen"]).to(torch.bfloat16)
         rows["D"].append(check_ivf_kernel(
@@ -358,7 +478,8 @@ def phase_ivf_kernels():
             lambda out: pack.pq_pack_score(lut, codes, blk, out=out),
             lambda: pack.pq_pack_score_plain(lut, codes, blk), ivf,
             f"B={IVF_BATCH} M={m} ksub={ksub}, 1M rows, {IVF_LISTS} lists, "
-            f"nprobe {IVF_NPROBE}"))
+            f"nprobe {IVF_NPROBE}", row_bytes=cols, in_bytes=2 * lut.numel(),
+            ops_per_col=IVF_BATCH * m, kind="float32"))
         del codes, lut
     torch.cuda.empty_cache()
     return rows
@@ -732,12 +853,13 @@ def main():
     log("1 build", kernels=len(kernels),
         wall_s=round(time.perf_counter() - t0, 2))
     for name, kernel in kernels.items():
+        instances = ptxas_summary(kernel.build_log)
         log("1 build", kernel=name, compiled=kernel.build_seconds is not None,
-            seconds=round(kernel.build_seconds or 0.0, 2))
-        for line in kernel.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log("1 build", kernel=name,
-                    ptxas=line.split(":", 1)[-1].strip().replace(" ", "_"))
+            seconds=round(kernel.build_seconds or 0.0, 2),
+            instances=len(instances),
+            spill_bytes=sum(i["spill_bytes"] for i in instances))
+        for inst in instances:
+            log("1 build", kernel=name, **inst)
 
     # ---- 2. kernels vs plain
     kernel_rows = phase_kernels()
@@ -849,11 +971,21 @@ def main():
     # ---- 6. train (main path: A and B launch counters from zero)
     train_launches = phase_train(tmp, params, config, tok, docs, mips, rng)
 
+    def timing(row, *rows):
+        """The line's numbers for one kernel from its headline row; every
+        row's numbers beside them."""
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        out = {k: row[k] for k in keys}
+        out["rows"] = [{"at": r.get("shape", r.get("at")),
+                        **{k: r[k] for k in ("dtype", *keys) if k in r}}
+                       for r in rows]
+        return out
+
+    bf16 = lambda rows: [r for r in rows if r["dtype"] == "bfloat16"]
     serve_row = next(r for r in kernel_rows
                      if r["shape"] == "64x12x32x64" and r["dtype"] == "bfloat16")
     bwd_row = next(r for r in bwd_rows
                    if r["shape"] == "12x12x384x64" and r["dtype"] == "bfloat16")
-    c_row, d_row = ivf_rows["C"][0], ivf_rows["D"][0]
     print(json.dumps({"kernels": [{
         "name": "attention_fwd", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/attention_fwd.cu",
@@ -862,29 +994,29 @@ def main():
         "launches_by_path": {"dump_serve": main_path_launches,
                              "train": train_launches["A"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-        "ms": serve_row["ms"], "plain_ms": serve_row["plain_ms"],
+        **timing(serve_row, *bf16(kernel_rows)),
         "at": "B=64 H=12 L=32 D=64 bf16"}, {
         "name": "attention_bwd", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "densephrases_tpu/models/attention.py:94",
         "launches": train_launches["B"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
-        "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
+        **timing(bwd_row, *bf16(bwd_rows)),
         "at": "B=12 H=12 L=384 D=64 bf16"}, {
         "name": "ivf_pack_score", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/ivf_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:94",
         "launches": ivf_launches["C"],
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["C"]),
-        "ms": c_row["ms"], "plain_ms": c_row["plain_ms"],
-        "at": c_row["at"]}, {
+        **timing(ivf_rows["C"][0], *ivf_rows["C"]),
+        "at": ivf_rows["C"][0]["at"]}, {
         "name": "pq_pack_score", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/pq_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:343",
         "launches": ivf_launches["D"],
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["D"]),
-        "ms": d_row["ms"], "plain_ms": d_row["plain_ms"],
-        "at": d_row["at"]}]}), flush=True)
+        **timing(ivf_rows["D"][0], *ivf_rows["D"]),
+        "at": ivf_rows["D"][0]["at"]}]}), flush=True)
     tmp_dir.cleanup()
     log("done", total_s=round(time.perf_counter() - t_start, 1))
     print(nvidia_smi(), flush=True)

@@ -59,7 +59,7 @@ def save_encoder(save_dir: str, params, config: BertConfig,
 
 
 def load_encoder(load_dir: str = "", draft: bool = False, seed: int = 42,
-                 device="cpu"
+                 device="cuda"
                  ) -> Tuple[EncoderParams, BertConfig, Optional[WordPieceTokenizer]]:
     """Load (params, config, tokenizer) from a save dir onto ``device``, or
     fresh-init when no dir is given (then the tokenizer is None)."""

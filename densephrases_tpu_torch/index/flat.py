@@ -64,7 +64,7 @@ class FlatIndex:
 
     def __init__(self, codes, offset: float = DEFAULT_OFFSET,
                  scale: float = DEFAULT_SCALE, chunk: int = 4096,
-                 device="cpu"):
+                 device="cuda"):
         """codes: [N, D] int8 numpy array (a memmap streams slice by slice,
         never copied whole on the host)."""
         if codes.dtype != np.int8:

@@ -237,7 +237,7 @@ def _balance_lists(x: np.ndarray, centroids: np.ndarray, assign: np.ndarray,
                    balance_factor: float = 4.0, rounds: int = 3,
                    offset: float = 0.0, scale: float = 1.0,
                    growth_cap: Optional[float] = None, verbose: bool = False,
-                   device="cpu"):
+                   *, device):
     """Split lists longer than balance_factor × mean (the cap is fixed from
     the initial k): ε-scaled centroid copies, then one Lloyd refinement and
     a reassignment a round, within growth_cap × the initial count."""
@@ -278,7 +278,7 @@ def _balance_lists(x: np.ndarray, centroids: np.ndarray, assign: np.ndarray,
 
 def _sq4_encode_stream(codes_int8: np.ndarray, offset: float, scale: float,
                        int4_offset=INT4_OFFSET, int4_scale=INT4_SCALE,
-                       chunk: int = 1 << 18, device="cpu") -> np.ndarray:
+                       chunk: int = 1 << 18, *, device) -> np.ndarray:
     """Streamed int8 → packed-int4 re-quantization (SQ4): blocks dequantize
     and re-quantize on the device and come back packed. Returns the packed
     bytes viewed as int8, as the reference stores them."""
@@ -350,7 +350,7 @@ class IVFIndex:
                  offset: float = DEFAULT_OFFSET, scale: float = DEFAULT_SCALE,
                  n_total: int = 0, refine_codes=None,
                  int4_offset=INT4_OFFSET, int4_scale=INT4_SCALE,
-                 device="cpu"):
+                 device="cuda"):
         """Host (numpy) arrays, uploaded to ``device``. codes: [N_pad, C]
         sorted by list, int8 (SQ8, SQ4 packed) or uint8 (PQ)."""
         self.device = resolve_device(device)
@@ -424,7 +424,7 @@ class IVFIndex:
     @staticmethod
     def build(codes_int8: np.ndarray, cfg: IVFConfig,
               offset: float = DEFAULT_OFFSET, scale: float = DEFAULT_SCALE,
-              verbose: bool = False, device="cpu",
+              verbose: bool = False, device="cuda",
               stage_s: Optional[dict] = None) -> "IVFIndex":
         """codes_int8: the store's int8 vectors [N, D]. stage_s, when
         given, receives the wall seconds of each stage (sample, kmeans,
@@ -445,7 +445,7 @@ class IVFIndex:
     def build_coarse(codes_int8: np.ndarray, cfg: IVFConfig,
                      offset: float = DEFAULT_OFFSET,
                      scale: float = DEFAULT_SCALE, verbose: bool = False,
-                     stage_s: Optional[dict] = None, device="cpu"):
+                     stage_s: Optional[dict] = None, *, device):
         """Coarse quantizer: train, assign the corpus, balance. Returns
         (centroids, assign, sample_cache), sample_cache being the training
         sample tuple of ``_train_sample``."""
@@ -494,7 +494,7 @@ class IVFIndex:
 
     @staticmethod
     def _train_sample(codes_int8: np.ndarray, cfg: IVFConfig, offset: float,
-                      scale: float, device="cpu"):
+                      scale: float, *, device):
         """Training subsample, deterministic in cfg.seed; it stays int8 and
         the k-means stack reads it through the affine contract. Returns
         (sample, offset, scale, selected rows)."""
@@ -522,7 +522,7 @@ class IVFIndex:
     def _finish_build(codes_int8: np.ndarray, cfg: IVFConfig,
                       centroids: np.ndarray, assign: np.ndarray,
                       offset: float, scale: float, verbose: bool = False,
-                      sample_cache=None, device="cpu") -> "IVFIndex":
+                      sample_cache=None, *, device) -> "IVFIndex":
         """Fine quantization and the sorted list layout, given a trained
         coarse quantizer."""
         n = codes_int8.shape[0]
@@ -713,7 +713,7 @@ class IVFIndex:
 
     @staticmethod
     def load(path: str, drop_refine: bool = False,
-             refine_mode: str = "device", device="cpu") -> "IVFIndex":
+             refine_mode: str = "device", device="cuda") -> "IVFIndex":
         """Load a save directory (either package's). refine_mode "device"
         uploads the int8 refine matrix; "none" (or drop_refine) drops it.
         The reference's host refine tier ("host") is not ported."""

@@ -155,11 +155,11 @@ class MIPS:
     def __init__(self, store: PhraseStore, index=None, device=None):
         """index: a ``FlatIndex`` or ``IVFIndex`` (None: a flat index over
         the store). device: where to upload the corpus when no ``index`` is
-        given (None: the CPU); with an ``index``, None or its device."""
+        given (None: "cuda"); with an ``index``, None or its device."""
         self.store = store
         if index is None:
             index = FlatIndex(store.vecs, store.offset, store.scale,
-                              device="cpu" if device is None else device)
+                              device="cuda" if device is None else device)
         elif not isinstance(index, (FlatIndex, IVFIndex)):
             raise NotImplementedError(
                 "the port serves a FlatIndex or an IVFIndex")

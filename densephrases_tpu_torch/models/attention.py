@@ -8,18 +8,23 @@ mask, the counterparts of ``densephrases_tpu/models/attention.py``:
   the tests and ``chip_smoke.py`` hold the kernel against it.
 - ``attention_cuda``: the hand-written CUDA kernel ``csrc/attention_fwd.cu``
   (the port of the Pallas ``_fused_attn_kernel``). It runs at every sequence
-  length: the reference's ``PALLAS_MIN_SEQ`` was a TPU crossover.
+  length: the reference's ``PALLAS_MIN_SEQ`` was a TPU crossover. Asked
+  for it, it also returns the row logsumexp for the backward;
+  ``attention_lse_plain`` is that output's plain twin.
 
 The backward has the same pair: ``attention_bwd_plain`` runs the Pallas
-``_fused_attn_bwd_kernel``'s formula in plain torch, and
-``attention_cuda_bwd`` launches ``csrc/attention_bwd.cu``. ``AttentionCuda``
-is the ``torch.autograd.Function`` that joins the two kernels, as the
-reference's custom VJP joins its two Pallas kernels.
+``_fused_attn_bwd_kernel``'s formula in plain torch from (q, k, v, mask, g),
+and ``attention_cuda_bwd`` launches ``csrc/attention_bwd.cu``, which also
+takes the forward's output and logsumexp and so never recomputes the
+softmax statistics. ``AttentionCuda`` is the ``torch.autograd.Function``
+that joins the two kernels, as the reference's custom VJP joins its two
+Pallas kernels; it saves (q, k, v, mask, out, lse).
 
 ``attention(..., impl="auto")`` picks by the tensor's device: the kernels
-(through ``AttentionCuda``) for CUDA tensors, the plain version under torch
-autograd for CPU tensors. There is no fallback: a CUDA tensor goes through
-the kernels or the call raises.
+for CUDA tensors (through ``AttentionCuda`` when a gradient is needed, the
+forward kernel alone otherwise), the plain version under torch autograd for
+CPU tensors. There is no fallback: a CUDA tensor goes through the kernels
+or the call raises.
 """
 
 from __future__ import annotations
@@ -33,12 +38,16 @@ from densephrases_tpu_torch.utils.cuda_build import CudaKernel
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
 
+# (q, k, v, mask, out, lse or NULL), (batch, heads, seq, head_dim, is_bf16),
+# stream
 ATTENTION_FWD = CudaKernel(
     "attention_fwd.cu", "dph_attention_fwd",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# (q, k, v, mask, g, out, lse, dq, dk, dv, delta scratch), (batch, heads,
+# seq, head_dim, is_bf16), stream
 ATTENTION_BWD = CudaKernel(
     "attention_bwd.cu", "dph_attention_bwd",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def attention_plain(q, k, v, mask):
@@ -49,6 +58,25 @@ def attention_plain(q, k, v, mask):
     scores = scores.to(torch.float32) + bias
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def attention_lse_plain(q, k, mask):
+    """The forward kernel's logsumexp output in plain torch: fp32 [B, H, L],
+    the logsumexp over keys of the fp32 masked scores, less the row's mask
+    offset. The offset is -1e9 for a batch row whose every key is masked
+    and 0 otherwise: fp32 cannot hold -1e9 + log L (its ulp there is 64), so
+    the kernels store the logsumexp of the shifted scores, whose softmax is
+    the same (csrc/attention_tiles.cuh: mask_offset)."""
+    inv_sqrt_d = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * inv_sqrt_d
+    scores = scores + ((1.0 - mask.to(torch.float32)) * NEG_INF)[:, None, None, :]
+    return torch.logsumexp(scores - mask_offset(mask)[:, None, None, None], -1)
+
+
+def mask_offset(mask):
+    """[B] fp32: -1e9 where every key of the batch row is masked, else 0."""
+    return torch.where((mask != 0).any(-1), 0.0, NEG_INF).to(torch.float32)
 
 
 def attention_bwd_plain(q, k, v, mask, g):
@@ -96,78 +124,101 @@ def _check_cuda_inputs(name, mask, *xs):
         raise ValueError(f"{name}: inputs and mask must be on one device")
 
 
-def attention_cuda(q, k, v, mask):
+def attention_cuda(q, k, v, mask, return_lse: bool = False):
     """The CUDA kernel. q, k, v: [B, H, L, D] contiguous CUDA tensors of one
-    dtype (float32 or bfloat16), D in ``HEAD_DIMS``; mask: [B, L].
-    Launches on the current stream and does not synchronise."""
+    dtype (float32 or bfloat16), D in ``HEAD_DIMS``; mask: [B, L]. Returns
+    out, or (out, lse) with ``return_lse`` (lse as ``attention_lse_plain``
+    gives it; otherwise the kernel writes none). Launches on the current
+    stream and does not synchronise."""
     _check_cuda_inputs("attention_cuda", mask, q, k, v)
     b, h, l, d = q.shape
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
-    maskf = mask.to(torch.float32).contiguous()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        ATTENTION_FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             maskf.data_ptr(), out.data_ptr(), b, h, l, d,
-                             int(q.dtype == torch.bfloat16), stream)
-    return out
+    lse = (torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if q.numel():
+        maskf = mask.to(torch.float32).contiguous()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            ATTENTION_FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 maskf.data_ptr(), out.data_ptr(),
+                                 lse.data_ptr() if return_lse else None,
+                                 b, h, l, d, int(q.dtype == torch.bfloat16),
+                                 stream)
+    return (out, lse) if return_lse else out
 
 
-def attention_cuda_bwd(q, k, v, mask, g):
+def attention_cuda_bwd(q, k, v, mask, g, out, lse):
     """The CUDA backward kernel: (dq, dk, dv) in q's dtype. Takes what
-    ``attention_cuda`` takes, plus the output gradient g of q's shape and
-    dtype. Launches on the current stream and does not synchronise."""
-    _check_cuda_inputs("attention_cuda_bwd", mask, q, k, v, g)
+    ``attention_cuda`` takes, the output gradient g and the forward's out
+    (both of q's shape and dtype) and its fp32 [B, H, L] lse. Launches on
+    the current stream and does not synchronise."""
+    _check_cuda_inputs("attention_cuda_bwd", mask, q, k, v, g, out)
     b, h, l, d = q.shape
+    if lse.shape != (b, h, l) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be a contiguous fp32 [{b}, {h}, {l}] "
+                         f"tensor on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
     maskf = mask.to(torch.float32).contiguous()
-    # per query row: the row max, 1 / the row sum and g . o (pass 1 → pass 2)
-    stats = torch.empty(b * h * l * 3, dtype=torch.float32, device=q.device)
+    # delta = g . out per query row: written by pass 1, read by pass 2
+    delta = torch.empty(b * h * l, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ATTENTION_BWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             maskf.data_ptr(), g.data_ptr(), dq.data_ptr(),
-                             dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                             maskf.data_ptr(), g.data_ptr(), out.data_ptr(),
+                             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                             dv.data_ptr(), delta.data_ptr(),
                              b, h, l, d, int(q.dtype == torch.bfloat16), stream)
     return dq, dk, dv
 
 
 def attention_function(forward, backward):
-    """A ``torch.autograd.Function`` from a forward ``(q, k, v, mask) → out``
-    and a backward ``(q, k, v, mask, g) → (dq, dk, dv)``. It saves only
-    (q, k, v, mask): the backward recomputes P, as the reference's custom
-    VJP does (attention.py:158-173). ``AttentionCuda`` is the kernels' pair;
-    the tests build one from the plain pair."""
+    """A ``torch.autograd.Function`` from a forward ``(q, k, v, mask) →
+    (out, lse)`` and a backward ``(q, k, v, mask, g, out, lse) → (dq, dk,
+    dv)``. It saves (q, k, v, mask, out, lse), so the backward rebuilds P
+    from the logsumexp without a second softmax sweep; the reference's
+    custom VJP saves only (q, k, v, mask) and recomputes P
+    (attention.py:158-173). Under remat the recomputed forward saves the
+    same. ``AttentionCuda`` is the kernels' pair; the tests build one from
+    the plain twins."""
 
     class _Attention(torch.autograd.Function):
         @staticmethod
         def forward(ctx, q, k, v, mask):
-            ctx.save_for_backward(q, k, v, mask)
-            return forward(q, k, v, mask)
+            out, lse = forward(q, k, v, mask)
+            ctx.save_for_backward(q, k, v, mask, out, lse)
+            return out
 
         @staticmethod
         def backward(ctx, g):
-            q, k, v, mask = ctx.saved_tensors
-            dq, dk, dv = backward(q, k, v, mask, g.contiguous())
+            q, k, v, mask, out, lse = ctx.saved_tensors
+            dq, dk, dv = backward(q, k, v, mask, g.contiguous(), out, lse)
             return dq, dk, dv, None
 
     return _Attention
 
 
-AttentionCuda = attention_function(attention_cuda, attention_cuda_bwd)
+AttentionCuda = attention_function(
+    lambda q, k, v, mask: attention_cuda(q, k, v, mask, return_lse=True),
+    attention_cuda_bwd)
 
 
 def attention(q, k, v, mask, impl: str = "auto"):
     """Dispatch: 'auto' (the kernels for CUDA tensors, the plain version for
     CPU tensors) | 'cuda' | 'plain'. Both are differentiable: 'cuda' through
-    ``AttentionCuda``, 'plain' through torch autograd."""
+    ``AttentionCuda``, 'plain' through torch autograd. Where no gradient is
+    asked for (grad mode off, or no input needs one), 'cuda' launches the
+    forward kernel alone, which then writes no logsumexp."""
     if impl == "auto":
         impl = "cuda" if q.is_cuda else "plain"
     if impl == "cuda":
-        return AttentionCuda.apply(q, k, v, mask)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return AttentionCuda.apply(q, k, v, mask)
+        return attention_cuda(q, k, v, mask)
     if impl == "plain":
         return attention_plain(q, k, v, mask)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -72,7 +72,7 @@ class EncoderParams(nn.Module):
 
 def init_encoder_params(config: BertConfig,
                         generator: Optional[torch.Generator] = None,
-                        device="cpu", with_teacher: bool = False
+                        device="cuda", with_teacher: bool = False
                         ) -> EncoderParams:
     """Random fp32 towers. The query towers start as copies of the phrase
     tower (ref: encoder.py:50-52 deepcopy). Drawn on the CPU from
@@ -298,7 +298,7 @@ def rc_loss(params: EncoderParams, config: BertConfig, batch, loss_cfg:
     return total, aux
 
 
-def init_pre_batch(pbn_size: int, batch_size: int, hidden: int, device="cpu"):
+def init_pre_batch(pbn_size: int, batch_size: int, hidden: int, *, device):
     """The empty ring: ``pbn_size`` slots of [batch_size, hidden] gold reps
     and a host-side count of the pushes so far."""
     device = resolve_device(device)
@@ -324,10 +324,10 @@ class PhraseEncoder:
     (ref: encoder.py:17-118)."""
 
     def __init__(self, config: BertConfig, params: Optional[EncoderParams] = None,
-                 generator: Optional[torch.Generator] = None, device="cpu"):
+                 generator: Optional[torch.Generator] = None, *, device):
         self.config = config
         if params is None:
-            params = init_encoder_params(config, generator, device)
+            params = init_encoder_params(config, generator, device=device)
         self.params = params
 
     def embed_phrase(self, input_ids, attention_mask, token_type_ids=None, **kw):

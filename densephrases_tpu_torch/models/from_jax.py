@@ -65,7 +65,7 @@ def _load_bert(model: BertModel, tree: Mapping, where: str):
             _copy(getattr(layer, name), stacked[i], f"{where}/layers/{name}")
 
 
-def encoder_from_jax(tree: Mapping, config: BertConfig, device="cpu",
+def encoder_from_jax(tree: Mapping, config: BertConfig, device="cuda",
                      dtype: Optional[torch.dtype] = None) -> EncoderParams:
     """``init_encoder_params``-style tree (``phrase``, ``query_start``,
     ``query_end``, ``filter``, and ``cross`` + ``qa_outputs`` when the tree

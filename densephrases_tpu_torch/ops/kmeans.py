@@ -88,7 +88,7 @@ def _effective(centroids: np.ndarray, quant: bool, offset: float,
 def accumulate_blocks(x: np.ndarray, centroids: np.ndarray,
                       chunk: int = 4096, block: int = _BLOCK,
                       offset: float = 0.0, scale: float = 1.0,
-                      device="cpu"):
+                      *, device):
     """Streamed Lloyd accumulation over host rows (f32, or int8 with the
     (offset, scale) dequant contract). Returns (sums [k, D], counts [k],
     cost) as numpy, in the DEQUANTIZED space."""
@@ -114,7 +114,7 @@ def accumulate_blocks(x: np.ndarray, centroids: np.ndarray,
 def assign_blocks(x: np.ndarray, centroids: np.ndarray,
                   chunk: int = 4096, block: int = _BLOCK,
                   offset: float = 0.0, scale: float = 1.0,
-                  device="cpu") -> np.ndarray:
+                  *, device) -> np.ndarray:
     """Streamed nearest-centroid assignment of host rows (f32, or int8
     shipped raw). Returns int32 [N] (numpy)."""
     quant = x.dtype == np.int8
@@ -131,7 +131,7 @@ def assign_blocks(x: np.ndarray, centroids: np.ndarray,
 
 def kmeans(x: np.ndarray, k: int, iters: int = 10, seed: int = 0,
            chunk: int = 4096, verbose: bool = False, offset: float = 0.0,
-           scale: float = 1.0, device="cpu") -> Tuple[np.ndarray, np.ndarray]:
+           scale: float = 1.0, *, device) -> Tuple[np.ndarray, np.ndarray]:
     """Train k centroids on host rows x (f32, or raw int8 codes with the
     (offset, scale) contract). Returns (centroids [k, D] f32 in the
     dequantized space, assignments [N] int32). The init and the empty-

@@ -64,7 +64,7 @@ def train_opq(x: np.ndarray, m: int, nbits: int = 8, niter: int = 10,
               pq_iters: int = 6, seed: int = 0, verbose: bool = False,
               offset: float = 0.0, scale: float = 1.0, row_chunk: int = 4096,
               sub_cents: np.ndarray = None, sub_ids: np.ndarray = None,
-              device="cpu") -> OPQ:
+              *, device) -> OPQ:
     """Train the rotation and codebooks on host rows x (f32, or raw int8
     with the (offset, scale) contract). sub_cents / sub_ids: train on
     residuals x − c[assign] (IVF by_residual)."""

@@ -120,7 +120,7 @@ def _training_rows(x, offset, scale, sub_cents, sub_ids, device):
 def train_pq(x: np.ndarray, m: int, nbits: int = 8, iters: int = 10,
              seed: int = 0, offset: float = 0.0, scale: float = 1.0,
              row_chunk: int = _ROW_CHUNK, sub_cents: np.ndarray = None,
-             sub_ids: np.ndarray = None, device="cpu") -> PQCodebook:
+             sub_ids: np.ndarray = None, *, device) -> PQCodebook:
     """Train M per-subspace codebooks of 2**nbits centroids on host rows x
     (f32, or raw int8 with the (offset, scale) contract). sub_cents /
     sub_ids: train on residuals x − c[assign] (IVF by_residual)."""
@@ -139,7 +139,7 @@ def pq_encode(pq: PQCodebook, x: np.ndarray, offset: float = 0.0,
               scale: float = 1.0, rotation: np.ndarray = None,
               block: int = 1 << 19, row_chunk: int = _ROW_CHUNK,
               cents: np.ndarray = None, assign: np.ndarray = None,
-              device="cpu") -> np.ndarray:
+              *, device) -> np.ndarray:
     """Encode host rows → uint8 codes [N, M], streamed through the device
     in ``block``-row chunks. rotation [D, D]: applied after dequant (OPQ).
     cents/assign: encode residuals x − c[assign], before the rotation."""

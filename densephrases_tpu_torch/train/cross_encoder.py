@@ -29,7 +29,7 @@ class CrossParams(nn.Module):
 
 def init_cross_params(config: BertConfig,
                       generator: Optional[torch.Generator] = None,
-                      device="cpu") -> CrossParams:
+                      device="cuda") -> CrossParams:
     """A random fp32 teacher, drawn on the CPU from ``generator`` (seed 0
     when None), then moved to ``device``."""
     device = resolve_device(device)

@@ -3,8 +3,9 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. At its
 first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library and loaded with ctypes. Libraries are cached in
-``densephrases_tpu_torch/_build/`` under the hash of their source and flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is.
+``densephrases_tpu_torch/_build/`` under the hash of their source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is.
 Nothing is compiled when a module is imported; a failed build raises.
 """
 
@@ -54,8 +55,10 @@ class CudaKernel:
         self._fn = None
 
     def library_path(self) -> Path:
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(CSRC_DIR.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 

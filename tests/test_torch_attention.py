@@ -110,6 +110,21 @@ def test_unknown_impl_raises():
         attention(q, k, v, mask, impl="pallas")
 
 
+def test_library_hash_covers_shared_headers(tmp_path, monkeypatch):
+    # kernels A and B include csrc/attention_tiles.cuh: editing the header
+    # must rebuild them, not load a stale library
+    from densephrases_tpu_torch.utils import cuda_build
+
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "tiles.cuh"\n')
+    (tmp_path / "tiles.cuh").write_text("// v1\n")
+    kernel = cuda_build.CudaKernel("k.cu", "k", [])
+    before = kernel.library_path()
+    (tmp_path / "tiles.cuh").write_text("// v2\n")
+    assert kernel.library_path() != before
+    assert kernel.library_path().name.startswith("k-")
+
+
 def test_import_needs_no_nvcc(tmp_path):
     # no toolkit on PATH and no CUDA_HOME: importing the kernel's module and
     # hashing its source must work; only a launch builds the library

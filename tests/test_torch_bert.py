@@ -35,7 +35,8 @@ def jax_params(cfgs):
 
 @pytest.fixture(scope="module")
 def bridged(cfgs, jax_params):
-    return encoder_from_jax(jax.tree.map(np.asarray, jax_params), cfgs[1])
+    return encoder_from_jax(jax.tree.map(np.asarray, jax_params), cfgs[1],
+                            device="cpu")
 
 
 def _batch(cfg, b=3, l=20, seed=0):
@@ -131,7 +132,8 @@ def test_mask_invariance(cfgs, bridged):
 
 def test_bridge_to_bf16(cfgs, jax_params):
     tree = jax.tree.map(np.asarray, jax_params)
-    params = encoder_from_jax(tree, cfgs[1], dtype=torch.bfloat16)
+    params = encoder_from_jax(tree, cfgs[1], device="cpu",
+                              dtype=torch.bfloat16)
     got = params.query_end.layers[1].ffn_in_w
     assert got.dtype == torch.bfloat16
     want = jnp.asarray(tree["query_end"]["layers"]["ffn_in_w"][1], jnp.bfloat16)
@@ -143,14 +145,17 @@ def test_bridge_rejects_wrong_shapes(cfgs, jax_params):
     tree = jax.tree.map(np.asarray, jax_params)
     wrong = BertConfig.tiny(vocab_size=cfgs[1].vocab_size + 1)
     with pytest.raises(ValueError, match="embed/word"):
-        encoder_from_jax(tree, wrong)
+        encoder_from_jax(tree, wrong, device="cpu")
 
 
 def test_init_is_seeded_and_query_towers_copy_phrase(cfgs):
     cfg = cfgs[1]
-    a = init_encoder_params(cfg, torch.Generator().manual_seed(3))
-    b = init_encoder_params(cfg, torch.Generator().manual_seed(3))
-    c = init_encoder_params(cfg, torch.Generator().manual_seed(4))
+    a = init_encoder_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    b = init_encoder_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    c = init_encoder_params(cfg, torch.Generator().manual_seed(4),
+                            device="cpu")
     for (name, pa), pb in zip(a.state_dict().items(),
                               b.state_dict().values()):
         assert torch.equal(pa, pb), name

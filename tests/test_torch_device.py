@@ -1,0 +1,100 @@
+"""The port's device rule: its entry points run on the card unless the
+caller asks for the CPU, and nothing lands on the CPU silently.
+
+Each public entry point that places data defaults to ``device="cuda"``,
+resolved through ``utils/device.py:resolve_device``, which raises when there
+is no GPU and never falls back. The internal helpers that take their
+device from a caller have no default at all."""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from densephrases_tpu_torch.cli import common, train_rc
+from densephrases_tpu_torch.index import ivf, search
+from densephrases_tpu_torch.index.flat import FlatIndex
+from densephrases_tpu_torch.index.ivf import IVFIndex
+from densephrases_tpu_torch.models import encoder, from_jax
+from densephrases_tpu_torch.models.bert import BertConfig
+from densephrases_tpu_torch.ops import kmeans, opq, pq
+from densephrases_tpu_torch.train import cross_encoder
+
+ENTRY_POINTS = {
+    "FlatIndex.__init__": FlatIndex.__init__,
+    "IVFIndex.__init__": IVFIndex.__init__,
+    "IVFIndex.build": IVFIndex.build,
+    "IVFIndex.load": IVFIndex.load,
+    "init_encoder_params": encoder.init_encoder_params,
+    "encoder_from_jax": from_jax.encoder_from_jax,
+    "load_encoder": common.load_encoder,
+    "init_cross_params": cross_encoder.init_cross_params,
+    "train_rc.main": train_rc.main,
+}
+
+HELPERS = {
+    "kmeans.accumulate_blocks": kmeans.accumulate_blocks,
+    "kmeans.assign_blocks": kmeans.assign_blocks,
+    "kmeans.kmeans": kmeans.kmeans,
+    "pq.train_pq": pq.train_pq,
+    "pq.pq_encode": pq.pq_encode,
+    "opq.train_opq": opq.train_opq,
+    "ivf._balance_lists": ivf._balance_lists,
+    "ivf._sq4_encode_stream": ivf._sq4_encode_stream,
+    "IVFIndex.build_coarse": IVFIndex.build_coarse,
+    "IVFIndex._train_sample": IVFIndex._train_sample,
+    "IVFIndex._finish_build": IVFIndex._finish_build,
+    "encoder.init_pre_batch": encoder.init_pre_batch,
+    "encoder.PhraseEncoder.__init__": encoder.PhraseEncoder.__init__,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    param = inspect.signature(ENTRY_POINTS[name]).parameters["device"]
+    assert param.default == "cuda", (name, param.default)
+
+
+def test_mips_default_is_the_index_device_else_the_card():
+    # None: the given index's device, else "cuda" (the test below)
+    param = inspect.signature(search.MIPS.__init__).parameters["device"]
+    assert param.default is None
+
+
+@pytest.mark.parametrize("name", sorted(HELPERS))
+def test_helper_takes_its_device_from_the_caller(name):
+    param = inspect.signature(HELPERS[name]).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY, (name, param.kind)
+    assert param.default is inspect.Parameter.empty, (name, param.default)
+
+
+def _no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("call", ["init_encoder_params", "FlatIndex",
+                                  "init_cross_params", "load_encoder"])
+def test_no_device_without_a_gpu_raises(monkeypatch, call):
+    _no_gpu(monkeypatch)
+    cfg = BertConfig.tiny()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        if call == "init_encoder_params":
+            encoder.init_encoder_params(cfg)
+        elif call == "FlatIndex":
+            FlatIndex(np.zeros((8, 4), np.int8))
+        elif call == "init_cross_params":
+            cross_encoder.init_cross_params(cfg)
+        else:
+            common.load_encoder(draft=True)
+
+
+def test_mips_without_index_or_gpu_raises(monkeypatch):
+    _no_gpu(monkeypatch)
+
+    class Store:  # MIPS builds its flat index before it reads anything else
+        vecs = np.zeros((8, 4), np.int8)
+        offset, scale = 0.0, 1.0
+
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        search.MIPS(Store())

@@ -91,7 +91,7 @@ def _same_results(ref, got, atol=SCORE_ATOL):
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_search_matches_reference_on_its_save(ref_saves, name, b):
     path = ref_saves(name)
-    ref, port = JaxIVFIndex.load(path), IVFIndex.load(path)
+    ref, port = JaxIVFIndex.load(path), IVFIndex.load(path, device="cpu")
     assert port.nlist == NLIST and port.pq_residual == ref.pq_residual
     assert (port.refine_codes is None) == (ref.refine_codes is None)
     q = _queries(b, seed=10 + b)
@@ -111,7 +111,7 @@ def test_union_route_matches_reference_for_one_query(ref_saves):
     # one SQ8 query row takes _probe_score in search(); search_union is the
     # other route, held to the reference's search_union
     path = ref_saves("SQ8")
-    ref, port = JaxIVFIndex.load(path), IVFIndex.load(path)
+    ref, port = JaxIVFIndex.load(path), IVFIndex.load(path, device="cpu")
     q = _queries(1, seed=3)
     for nprobe in (1, 4):
         _same_results(ref.search_union(q, top_k=12, nprobe=nprobe),
@@ -128,13 +128,13 @@ def _brute_sq8(q, codes):
 
 @pytest.fixture(scope="module")
 def port_sq8():
-    return IVFIndex.build(_corpus(), _cfg(IVFConfig, "SQ8"))
+    return IVFIndex.build(_corpus(), _cfg(IVFConfig, "SQ8"), device="cpu")
 
 
 @pytest.mark.parametrize("b", [1, 8])
 def test_full_probe_sq8_equals_flat_index(port_sq8, b):
     q = _queries(b, seed=20)
-    fv, fi = FlatIndex(_corpus()).search(q, top_k=25)
+    fv, fi = FlatIndex(_corpus(), device="cpu").search(q, top_k=25)
     iv, ii = port_sq8.search(q, top_k=25, nprobe=NLIST)
     np.testing.assert_array_equal(ii, fi)
     np.testing.assert_allclose(iv, fv, atol=SCORE_ATOL, rtol=0)
@@ -160,7 +160,7 @@ def test_scores_exact_partial_probe(port_sq8):
 def test_pq_4bit_full_probe_recall():
     idx = IVFIndex.build(_corpus(), IVFConfig(
         num_clusters=NLIST, fine_quant="OPQ64x4", pq_iters=3, opq_iters=2,
-        kmeans_iters=4, refine_factor=16))
+        kmeans_iters=4, refine_factor=16), device="cpu")
     assert idx.codes.shape[1] == 32  # nibble-packed
     q = _queries(8, seed=8)
     vals, gids = idx.search_union(q, top_k=10, nprobe=NLIST)
@@ -178,23 +178,25 @@ def test_pq_4bit_full_probe_recall():
 def test_kmeans_matches_reference():
     x = _clustered(2000, 32)
     rc, ra = jk.kmeans(x, 16, iters=8, seed=0, chunk=256)
-    pc, pa = tk.kmeans(x, 16, iters=8, seed=0, chunk=256)
+    pc, pa = tk.kmeans(x, 16, iters=8, seed=0, chunk=256, device="cpu")
     # same init rows; bf16 distance products summed in fp32 in another
     # order, so a near-tie may move a row
     np.testing.assert_allclose(pc, rc, atol=1e-4)
     assert (pa == ra).mean() >= 0.99
     codes = _corpus()  # the int8 path (transformed centroids)
     rc, ra = jk.kmeans(codes, 16, iters=5, seed=0, offset=-2.0, scale=20.0)
-    pc, pa = tk.kmeans(codes, 16, iters=5, seed=0, offset=-2.0, scale=20.0)
+    pc, pa = tk.kmeans(codes, 16, iters=5, seed=0, offset=-2.0, scale=20.0,
+                       device="cpu")
     np.testing.assert_allclose(pc, rc, atol=1e-4)
     assert (pa == ra).mean() >= 0.99
 
 
 def test_pq_matches_reference():
     x = _clustered(3000, 64, seed=1)
-    rp, pp = jpq.train_pq(x, 8, iters=5), tpq.train_pq(x, 8, iters=5)
+    rp = jpq.train_pq(x, 8, iters=5)
+    pp = tpq.train_pq(x, 8, iters=5, device="cpu")
     np.testing.assert_allclose(pp.codebooks, rp.codebooks, atol=1e-4)
-    pc = tpq.pq_encode(pp, x)
+    pc = tpq.pq_encode(pp, x, device="cpu")
     assert pc.dtype == np.uint8 and (pc == jpq.pq_encode(rp, x)).mean() > 0.99
     np.testing.assert_array_equal(tpq.pq_decode(pp, pc),
                                   jpq.pq_decode(pp, pc))
@@ -213,7 +215,7 @@ def test_opq_reduces_error_like_reference():
     x = rng.normal(size=(3000, 64)).astype(np.float32) \
         @ rng.normal(size=(64, 64)).astype(np.float32)
     ro = jopq.train_opq(x, 8, niter=3, pq_iters=4)
-    po = topq.train_opq(x, 8, niter=3, pq_iters=4)
+    po = topq.train_opq(x, 8, niter=3, pq_iters=4, device="cpu")
     np.testing.assert_allclose(po.rotation @ po.rotation.T, np.eye(64),
                                atol=1e-4)
 
@@ -245,7 +247,8 @@ def _row_lists(offs, row_perm):
 @pytest.mark.parametrize("fine_quant", ["SQ8", "SQ4", "OPQ8"])
 def test_build_matches_reference(fine_quant):
     ref = JaxIVFIndex.build(_corpus(), _cfg(JaxIVFConfig, fine_quant))
-    port = IVFIndex.build(_corpus(), _cfg(IVFConfig, fine_quant))
+    port = IVFIndex.build(_corpus(), _cfg(IVFConfig, fine_quant),
+                          device="cpu")
     np.testing.assert_allclose(port.centroids.numpy(),
                                np.asarray(ref.centroids), atol=1e-4)
     ra = _row_lists(np.asarray(ref.list_offsets), ref.row_perm)
@@ -263,12 +266,14 @@ def test_build_matches_reference(fine_quant):
 
 def test_build_stage_seconds_and_two_level_refused():
     stages = {}
-    IVFIndex.build(_corpus(), _cfg(IVFConfig, "SQ8"), stage_s=stages)
+    IVFIndex.build(_corpus(), _cfg(IVFConfig, "SQ8"), stage_s=stages,
+                   device="cpu")
     assert set(stages) == {"sample_s", "kmeans_s", "assign_s", "balance_s",
                            "fine_s"}
     with pytest.raises(NotImplementedError, match="two-level"):
         IVFIndex.build(_corpus(), IVFConfig(num_clusters=16,
-                                            two_level_clusters=16))
+                                            two_level_clusters=16),
+                       device="cpu")
 
 
 # ------------------------------------------------------ the save format
@@ -284,8 +289,8 @@ def test_port_save_passes_reference_recall_bands(tmp_path, fine_quant,
     queries = _clustered(16, 64, seed=5)
     _, exact_ids = JaxFlatIndex(codes, chunk=512).search(queries, top_k=10)
     IVFIndex.build(codes, IVFConfig(num_clusters=64, fine_quant=fine_quant,
-                                    kmeans_iters=6, pq_iters=4, opq_iters=2)
-                   ).save(str(tmp_path / "ivf"))
+                                    kmeans_iters=6, pq_iters=4, opq_iters=2),
+                   device="cpu").save(str(tmp_path / "ivf"))
     ref = JaxIVFIndex.load(str(tmp_path / "ivf"))
     assert isinstance(ref.cfg, JaxIVFConfig)
     _, ivf_ids = ref.search(queries, top_k=10, nprobe=16)
@@ -300,7 +305,8 @@ def test_port_save_full_probe_sq8_is_near_exact_in_reference(tmp_path):
     queries = _clustered(8, 64, seed=7)
     ev, exact_ids = JaxFlatIndex(codes, chunk=512).search(queries, top_k=5)
     IVFIndex.build(codes, IVFConfig(num_clusters=32, fine_quant="SQ8",
-                                    kmeans_iters=5)).save(str(tmp_path / "i"))
+                                    kmeans_iters=5),
+                   device="cpu").save(str(tmp_path / "i"))
     iv, ivf_ids = JaxIVFIndex.load(str(tmp_path / "i")).search(
         queries, top_k=5, nprobe=32)
     recall = np.mean([len(set(e.tolist()) & set(i.tolist())) / 5
@@ -311,14 +317,15 @@ def test_port_save_full_probe_sq8_is_near_exact_in_reference(tmp_path):
 
 @pytest.mark.parametrize("fine_quant", ["SQ4", "OPQ16x4"])
 def test_port_save_round_trips_through_reference(tmp_path, fine_quant):
-    port = IVFIndex.build(_corpus(), _cfg(IVFConfig, fine_quant))
+    port = IVFIndex.build(_corpus(), _cfg(IVFConfig, fine_quant),
+                          device="cpu")
     port.save(str(tmp_path / "a"))
     ref = JaxIVFIndex.load(str(tmp_path / "a"))
     q = _queries(8, seed=30)
     _same_results(ref.search(q, top_k=10, nprobe=4),
                   port.search(q, top_k=10, nprobe=4))
     ref.save(str(tmp_path / "b"))  # and back into the port
-    again = IVFIndex.load(str(tmp_path / "b"))
+    again = IVFIndex.load(str(tmp_path / "b"), device="cpu")
     _same_results(port.search(q, top_k=10, nprobe=4),
                   again.search(q, top_k=10, nprobe=4), atol=0)
 
@@ -327,7 +334,7 @@ def test_loading_a_reference_save_imports_no_jax(ref_saves):
     path = ref_saves("OPQ8")
     code = ("import sys\n"
             "from densephrases_tpu_torch.index.ivf import IVFIndex\n"
-            f"idx = IVFIndex.load({path!r})\n"
+            f"idx = IVFIndex.load({path!r}, device='cpu')\n"
             "assert idx.pq is not None and idx.rotation is not None\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m.split('.')[0] == 'densephrases_tpu']\n"
@@ -345,25 +352,25 @@ def test_ivf_pkl_refuses_other_globals(tmp_path, ref_saves):
     with open(path / "ivf.pkl", "wb") as f:
         pickle.dump({"cfg": os.getcwd}, f)
     with pytest.raises(pickle.UnpicklingError, match="posix.getcwd"):
-        IVFIndex.load(str(path))
+        IVFIndex.load(str(path), device="cpu")
 
 
 def test_legacy_config_without_pq_residual(ref_saves):
     path = ref_saves("PQ8")
-    port = IVFIndex.load(path)
+    port = IVFIndex.load(path, device="cpu")
     cfg = port.cfg
     del cfg.__dict__["pq_residual"]  # a pre-residual pickle
     legacy = IVFIndex(cfg, port.centroids.numpy(), port.row_perm.numpy(),
                       port.list_offsets.numpy(), port.codes.numpy(),
-                      pq=port.pq, n_total=port.n_total)
+                      pq=port.pq, n_total=port.n_total, device="cpu")
     assert port.pq_residual and not legacy.pq_residual
 
 
 def test_unaligned_memmap_codes_refused(tmp_path, ref_saves):
-    port = IVFIndex.load(ref_saves("SQ8"))
+    port = IVFIndex.load(ref_saves("SQ8"), device="cpu")
     codes = np.lib.format.open_memmap(str(tmp_path / "c.npy"), mode="w+",
                                       dtype=np.int8, shape=(N + 5, D))
     with pytest.raises(NotImplementedError, match="unaligned"):
         IVFIndex(port.cfg, port.centroids.numpy(),
                  np.arange(N + 5), port.list_offsets.numpy(), codes,
-                 n_total=N)
+                 n_total=N, device="cpu")

@@ -70,7 +70,8 @@ def setup(tmp_path_factory, vocab):
     jcfg = JaxBertConfig.tiny(vocab_size=len(vocab))
     cfg = BertConfig.tiny(vocab_size=len(vocab))
     jparams = jax_init(jax.random.PRNGKey(0), jcfg)
-    params = encoder_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = encoder_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                              device="cpu")
     jstore = jax_dump(jparams, jcfg, JaxTokenizer(vocab), docs,
                       str(tmp / "jax"), max_seq_length=64, batch_size=4,
                       attn_impl="xla")
@@ -78,8 +79,8 @@ def setup(tmp_path_factory, vocab):
     tok = WordPieceTokenizer(vocab)
     store = dump_phrases(params, cfg, tok, docs, str(tmp / "port"),
                          max_seq_length=64, batch_size=4, _stats=stats)
-    model = DensePhrases(params, cfg, tok, MIPS(store), max_query_length=16,
-                         serve_dtype="bf16")
+    model = DensePhrases(params, cfg, tok, MIPS(store, device="cpu"),
+                         max_query_length=16, serve_dtype="bf16")
     return {"tmp": tmp, "jstore": jstore, "store": store, "stats": stats,
             "model": model, "cfg": cfg}
 
@@ -130,7 +131,7 @@ def _spans(results):
 def test_search_matches_reference_on_one_store(setup):
     path = str(setup["tmp"] / "jax")
     jm = JaxMIPS(JaxPhraseStore.load(path))
-    pm = MIPS(PhraseStore.load(path))
+    pm = MIPS(PhraseStore.load(path), device="cpu")
     rng = np.random.default_rng(0)
     query = rng.standard_normal((4, 2 * setup["cfg"].hidden_size)) \
         .astype(np.float32)
@@ -270,7 +271,8 @@ def test_ivf_search_matches_reference_on_one_store(setup, ivf_saves, fq, b):
     path = str(setup["tmp"] / "jax")
     jm = JaxMIPS(JaxPhraseStore.load(path),
                  index=JaxIVFIndex.load(ivf_saves[fq]))
-    pm = MIPS(PhraseStore.load(path), index=IVFIndex.load(ivf_saves[fq]))
+    pm = MIPS(PhraseStore.load(path),
+              index=IVFIndex.load(ivf_saves[fq], device="cpu"))
     rng = np.random.default_rng(7 + b)
     query = rng.standard_normal((b, 2 * setup["cfg"].hidden_size)) \
         .astype(np.float32)
@@ -289,7 +291,8 @@ def ivf_model(setup):
     """The slice's model over a port-built full-probe SQ8 IVF index."""
     store, model = setup["store"], setup["model"]
     index = IVFIndex.build(store.vecs, IVFConfig(
-        num_clusters=IVF_NLIST, fine_quant="SQ8", kmeans_iters=4))
+        num_clusters=IVF_NLIST, fine_quant="SQ8", kmeans_iters=4),
+        device="cpu")
     mips = MIPS(store, index=index)
     return DensePhrases(model.params, model.config, model.tokenizer, mips,
                         max_query_length=16)
@@ -325,7 +328,8 @@ def test_fused_server_refuses_ivf(ivf_model):
 
 
 def test_pq_index_without_refine_is_refused(setup, ivf_saves):
-    index = IVFIndex.load(ivf_saves["OPQ8"], drop_refine=True)
+    index = IVFIndex.load(ivf_saves["OPQ8"], drop_refine=True,
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="pq_serve"):
         MIPS(setup["store"], index=index)
 

@@ -136,14 +136,14 @@ def test_flat_index_matches_reference(n, k):
     # k > n pads with NEG_INF scores, as the reference does
     codes, queries = _corpus(n, seed=1)
     rv, ri = JaxFlatIndex(codes).search(queries, top_k=k)
-    tv, ti = FlatIndex(codes).search(queries, top_k=k)
+    tv, ti = FlatIndex(codes, device="cpu").search(queries, top_k=k)
     np.testing.assert_array_equal(ti, ri)
     np.testing.assert_allclose(tv, rv, atol=SCORE_ATOL)
 
 
 def test_flat_index_matches_exact_dequantized_scores():
     codes, queries = _corpus(2000, seed=2)
-    vals, ids = FlatIndex(codes, chunk=512).search(queries, top_k=8)
+    vals, ids = FlatIndex(codes, chunk=512, device="cpu").search(queries, top_k=8)
     # the scan rounds queries to bf16 for the product and takes Σq in fp32
     qbf = torch.from_numpy(queries).to(torch.bfloat16).float().numpy()
     exact = (qbf.astype(np.float64) @ codes.T.astype(np.float64)) / 20.0 \
@@ -155,4 +155,4 @@ def test_flat_index_matches_exact_dequantized_scores():
 
 def test_flat_index_rejects_non_int8():
     with pytest.raises(ValueError, match="int8"):
-        FlatIndex(np.zeros((4, 8), np.float32))
+        FlatIndex(np.zeros((4, 8), np.float32), device="cpu")

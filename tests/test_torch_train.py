@@ -191,7 +191,8 @@ def test_rc_loss_and_gradients_match_reference(jax_params, monkeypatch, dtype):
     batch = _batch(tcfg)
     pre = _pre_batch(tcfg.hidden_size)
     r_total, r_aux, r_grads = _jax_loss_and_grads(jax_params, jcfg, batch, pre)
-    params = encoder_from_jax(jax.tree.map(np.asarray, jax_params), tcfg)
+    params = encoder_from_jax(jax.tree.map(np.asarray, jax_params), tcfg,
+                              device="cpu")
     total, aux, grads = _port_loss_and_grads(params, tcfg, batch, pre,
                                              getattr(torch, dtype))
     # fp32: the same function in the same precision, summed in other
@@ -249,7 +250,8 @@ def test_ignored_index_matches_the_jitted_reference(jax_params, monkeypatch):
                         deterministic=True, attn_impl="xla")[1]["single_loss"]
     assert np.isnan(float(eager))
     assert np.isfinite(float(r_total))
-    params = encoder_from_jax(jax.tree.map(np.asarray, jax_params), tcfg)
+    params = encoder_from_jax(jax.tree.map(np.asarray, jax_params), tcfg,
+                              device="cpu")
     total, aux, grads = _port_loss_and_grads(params, tcfg, batch, pre,
                                              torch.float32)
     for k in ("single_loss", "neg_loss"):
@@ -291,7 +293,8 @@ def test_optimizer_matches_optax(jax_params):
               adam_epsilon=1e-6, max_grad_norm=1.0)
     j_opt = jax_make_optimizer(**kw)
     j_state = j_opt.init(student)
-    params = encoder_from_jax(jax.tree.map(np.asarray, jax_params), tcfg)
+    params = encoder_from_jax(jax.tree.map(np.asarray, jax_params), tcfg,
+                              device="cpu")
     named = {n: p for n, p in params.named_parameters()
              if n.split(".")[0] in STUDENT}
     opt = make_optimizer(**kw)
@@ -332,7 +335,8 @@ def test_train_steps_match_reference(jax_params, monkeypatch):
                                hidden=tcfg.hidden_size)
     j_step = jax_make_step(jcfg, JaxLossConfig(**LOSS_CFG), j_opt,
                            attn_impl="xla")
-    params = encoder_from_jax(jax.tree.map(np.asarray, jax_params), tcfg)
+    params = encoder_from_jax(jax.tree.map(np.asarray, jax_params), tcfg,
+                              device="cpu")
     opt = make_optimizer(**kw)
     state = create_train_state(params, opt, pbn_size=2, batch_size=B,
                                hidden=tcfg.hidden_size)
@@ -377,7 +381,7 @@ def _train(params, cfg, steps, start=0, state=None, frozen=True):
 @pytest.mark.parametrize("frozen", [True, False])
 def test_frozen_word_embeddings_and_teacher(frozen):
     _, tcfg = _cfgs(dropout=0.1)
-    params = init_encoder_params(tcfg, with_teacher=True)
+    params = init_encoder_params(tcfg, device="cpu", with_teacher=True)
     before = {n: p.detach().clone() for n, p in params.named_parameters()}
     state = _train(params, tcfg, 3, frozen=frozen)
     for n, p in state.params.named_parameters():
@@ -397,7 +401,7 @@ def test_remat_full_equals_none_with_dropout():
     batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg, seed=2).items()}
     results = {}
     for remat, seed in (("full", 7), ("none", 7), ("none", 8)):
-        params = init_encoder_params(tcfg, with_teacher=True)
+        params = init_encoder_params(tcfg, device="cpu", with_teacher=True)
         total, _ = rc_loss(params, tcfg, batch, RCLossConfig(**LOSS_CFG),
                            dropout=torch.Generator().manual_seed(seed),
                            remat=remat, compute_dtype=torch.float32)
@@ -413,7 +417,7 @@ def test_remat_full_equals_none_with_dropout():
 
 def test_remat_dots_is_not_ported():
     _, tcfg = _cfgs()
-    params = init_encoder_params(tcfg)
+    params = init_encoder_params(tcfg, device="cpu")
     ids = torch.zeros(2, 8, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="dots"):
         params.phrase(ids, torch.ones_like(ids), remat="dots")
@@ -421,13 +425,13 @@ def test_remat_dots_is_not_ported():
 
 def test_resume_equals_uninterrupted_run(tmp_path):
     _, tcfg = _cfgs(dropout=0.1)
-    whole = _train(init_encoder_params(tcfg, with_teacher=True), tcfg, 3)
-    first = _train(init_encoder_params(tcfg, with_teacher=True), tcfg, 1)
+    whole = _train(init_encoder_params(tcfg, device="cpu", with_teacher=True), tcfg, 3)
+    first = _train(init_encoder_params(tcfg, device="cpu", with_teacher=True), tcfg, 1)
     save_checkpoint(str(tmp_path), first, step=first.step)
     # a template from another seed: everything must come from the save
     template = create_train_state(
         init_encoder_params(tcfg, torch.Generator().manual_seed(9),
-                            with_teacher=True),
+                            device="cpu", with_teacher=True),
         make_optimizer(), pbn_size=2, batch_size=B, hidden=tcfg.hidden_size)
     resumed = restore_checkpoint(str(tmp_path), template)
     assert resumed.step == 1 and resumed.pre_batch["count"] == 1
@@ -445,7 +449,7 @@ def test_resume_equals_uninterrupted_run(tmp_path):
 
 
 def test_pre_batch_ring_wraps():
-    ring = init_pre_batch(2, B, 4)
+    ring = init_pre_batch(2, B, 4, device="cpu")
     for i in range(3):
         ring = pre_batch_update(ring, torch.full((B, 4), float(i)),
                                 torch.full((B, 4), -float(i)))

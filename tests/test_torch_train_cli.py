@@ -71,7 +71,7 @@ def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("train_rc")
     train = _squad(str(tmp / "train.json"))
     cfg = BertConfig.tiny(vocab_size=len(VOCAB))
-    save_encoder(str(tmp / "init"), init_encoder_params(cfg), cfg,
+    save_encoder(str(tmp / "init"), init_encoder_params(cfg, device="cpu"), cfg,
                  WordPieceTokenizer(VOCAB))
     out = str(tmp / "out")
     state, rates = train_rc.main(
