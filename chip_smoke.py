@@ -16,7 +16,10 @@ written kernel on that path against its plain PyTorch version:
                  card's peak bytes/s and ops/s against the work) and, for A
                  and B, one PyTorch call of the same function as a yardstick
                  (``scaled_dot_product_attention`` and its backward; timed
-                 here only, never called by the port)
+                 here only, never called by the port); for C the product
+                 alone on the gathered rows as a yardstick, and the whole
+                 SQ8 and OPQ96-like scans around C and D; then C and D at
+                 ragged shapes (``IVF_EDGE_*``)
   3. dump        ``dump_phrases`` of a seeded synthetic corpus into a store
   4. serve       ``DensePhrases.search`` for all four units, the fused server
                  over 4 batches of 64 queries, the brute-force span oracle,
@@ -123,6 +126,21 @@ IVF_KERNEL_RTOL = 1e-5
 # phase 2's synthetic IVF index at the serve shape
 IVF_ROWS, IVF_LISTS, IVF_DIM, IVF_NPROBE = 1 << 20, 4096, 768, 16
 IVF_BATCH = 2 * QUERY_BATCH  # start and end query rows, stacked
+# the whole scans around C and D at that shape: top-10, and for the
+# OPQ96-like scan the index's refine factor 4 (IVFConfig.refine_factor)
+IVF_SCAN_TOP_K, IVF_REFINE_FACTOR = 10, 4
+# C and D at ragged shapes against their plain twins (correctness only):
+# batches of 1, 37 and 130 rows (a lone query, a partial query group, more
+# than 128 rows); C at dim 64 (SQ8 and SQ4) and at 68 / 72 (rows of 68 and
+# 36 bytes, which take 4-byte loads and end in a partial 32-byte chunk); D
+# at M 8 and 24 8-bit (rows narrower than, or not a multiple of, its
+# 16-byte loads) and M 12 4-bit (6-byte rows, byte loads). The table holds
+# 37 real entries of 96 blocks in a budget of 64: a tile that is partly
+# junk, then all-junk tiles whose columns must stay unwritten.
+IVF_EDGE_BATCHES = (1, 37, 130)
+IVF_EDGE_C = ((64, False), (64, True), (68, False), (72, True))
+IVF_EDGE_D = ((8, 256), (24, 256), (12, 16))
+IVF_EDGE_BLOCKS, IVF_EDGE_REAL, IVF_EDGE_BUDGET = 96, 37, 64
 # phase 5: nlist before balancing, and the nprobe of the recall check
 IVF_CLUSTERS, SERVE_NPROBE = 128, 16
 # full-probe IVF-SQ8 vs flat top-1 span: both score bf16(q) . code in fp32
@@ -401,7 +419,8 @@ def synthetic_ivf():
         torch.as_tensor(offs, device=DEVICE), nlist=IVF_LISTS, cap=cap,
         pad_blk=n_pad // pack.RB - 1, budget=budget)
     return {"q": q, "blk": blk, "total": int(total), "budget": budget,
-            "n_pad": n_pad, "gen": gen}
+            "n_pad": n_pad, "gen": gen, "cents": cents, "cap": cap,
+            "offs": torch.as_tensor(offs, device=DEVICE)}
 
 
 def random_codes(ivf, cols, dtype):
@@ -455,34 +474,137 @@ def phase_ivf_kernels():
 
     ivf = synthetic_ivf()
     q_bf, blk = ivf["q"].to(torch.bfloat16), ivf["blk"]
+    src, valid = pack._valid_rows(blk, ivf["total"], IVF_ROWS)
+    src_valid = src[valid]
+    row_perm = torch.arange(IVF_ROWS, dtype=torch.int32, device=DEVICE)
+    scan_args = dict(top_k=IVF_SCAN_TOP_K, nprobe=IVF_NPROBE, cap=ivf["cap"],
+                     budget=ivf["budget"], n_real=IVF_ROWS)
     rows = {"C": [], "D": []}
     for sq4 in (False, True):
         cols = IVF_DIM // 2 if sq4 else IVF_DIM
         codes = random_codes(ivf, cols, torch.int8)
-        rows["C"].append(check_ivf_kernel(
+        row = check_ivf_kernel(
             "ivf_pack_score",
             lambda out: pack.pack_score(q_bf, codes, blk, sq4=sq4, out=out),
             lambda: pack.pack_score_plain(q_bf, codes, blk, sq4=sq4), ivf,
             f"B={IVF_BATCH} D={IVF_DIM} {'SQ4' if sq4 else 'SQ8'}, "
             f"1M rows, {IVF_LISTS} lists, nprobe {IVF_NPROBE}",
             row_bytes=cols, in_bytes=2 * q_bf.numel(),
-            ops_per_col=2 * IVF_BATCH * IVF_DIM, kind="bfloat16"))
+            ops_per_col=2 * IVF_BATCH * IVF_DIM, kind="bfloat16")
+        # the product alone, as a yardstick (never library_ms, never called
+        # by the port): the bf16 queries against the already gathered,
+        # bf16-converted valid rows, without the gather or the unpacking
+        tile = codes[src_valid]
+        if sq4:  # the plain twin's unpack: high nibble = first half
+            tile = tile.to(torch.int32) & 0xFF
+            tile = torch.cat([tile >> 4, tile & 0xF], dim=1)
+        tile = tile.to(torch.bfloat16).contiguous()
+        row["product_only_ms"] = cuda_ms(lambda: torch.matmul(q_bf, tile.T),
+                                         iters=20)
+        del tile
+        if not sq4:
+            ms = cuda_ms(lambda: pack.packed_union_scan(
+                ivf["q"], ivf["cents"], ivf["offs"], codes, row_perm, 0.0,
+                1.0, **scan_args), iters=10)
+            row.update(scan_ms=ms, kernel_share_of_scan=row["ms"] / ms)
+        log("2 kernels", kernel="ivf_pack_score", at=row["at"],
+            **{k: row[k] for k in ("product_only_ms", "scan_ms",
+                                   "kernel_share_of_scan") if k in row})
+        rows["C"].append(row)
         del codes
+    refine = random_codes(ivf, IVF_DIM, torch.int8)[:IVF_ROWS]
+    rot = torch.linalg.qr(torch.randn(IVF_DIM, IVF_DIM, device=DEVICE,
+                                      generator=ivf["gen"]))[0]
     for m, ksub in ((96, 256), (192, 16)):
         cols = m if ksub == 256 else m // 2
         codes = random_codes(ivf, cols, torch.uint8)
         lut = torch.randn(IVF_BATCH, m, ksub, device=DEVICE,
                           generator=ivf["gen"]).to(torch.bfloat16)
-        rows["D"].append(check_ivf_kernel(
+        row = check_ivf_kernel(
             "pq_pack_score",
             lambda out: pack.pq_pack_score(lut, codes, blk, out=out),
             lambda: pack.pq_pack_score_plain(lut, codes, blk), ivf,
             f"B={IVF_BATCH} M={m} ksub={ksub}, 1M rows, {IVF_LISTS} lists, "
             f"nprobe {IVF_NPROBE}", row_bytes=cols, in_bytes=2 * lut.numel(),
-            ops_per_col=IVF_BATCH * m, kind="float32"))
+            ops_per_col=IVF_BATCH * m, kind="float32")
+        if ksub == 256:
+            # OPQ96-like: rotated queries, the LUT from random books, the
+            # int8 refine of top_k x refine_factor candidates
+            books = torch.randn(m, ksub, IVF_DIM // m, device=DEVICE,
+                                generator=ivf["gen"])
+            ms = cuda_ms(lambda: pack.packed_pq_scan(
+                ivf["q"], ivf["q"] @ rot, ivf["cents"], ivf["offs"], codes,
+                row_perm, books, refine, 0.0, 1.0,
+                scan_k=IVF_SCAN_TOP_K * IVF_REFINE_FACTOR, **scan_args),
+                iters=10)
+            row.update(scan_ms=ms, kernel_share_of_scan=row["ms"] / ms)
+            log("2 kernels", kernel="pq_pack_score", at=row["at"],
+                scan_ms=ms, kernel_share_of_scan=row["ms"] / ms)
+        rows["D"].append(row)
         del codes, lut
+    del refine
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_ivf_edges():
+    """Kernels C and D at ragged shapes (``IVF_EDGE_*``) against their
+    plain twins: the scored columns agree within ``IVF_KERNEL_RTOL`` of max
+    |ref| and the all-junk tiles' columns keep the NaN they were filled
+    with."""
+    from densephrases_tpu_torch.ops import ivf_pack as pack
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    n_rows = IVF_EDGE_BLOCKS * pack.RB
+    blk = torch.full((IVF_EDGE_BUDGET,), IVF_EDGE_BLOCKS, dtype=torch.int32)
+    blk[:IVF_EDGE_REAL] = torch.randperm(IVF_EDGE_BLOCKS, generator=gen)[
+        :IVF_EDGE_REAL].int()
+    blk = blk.to(DEVICE)
+    # columns of the tiles that hold a real entry, partly junk ones included
+    scored = -(-IVF_EDGE_REAL // pack.TPB) * pack.TILE
+
+    def codes_of(cols, dtype):
+        lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+        codes = torch.zeros(n_rows + pack.RB, cols, dtype=dtype)
+        codes[:n_rows] = torch.randint(lo, hi, (n_rows, cols), dtype=dtype,
+                                       generator=gen)
+        return codes.to(DEVICE)
+
+    def check(name, b, launch, plain, **at):
+        out = torch.full((b, IVF_EDGE_BUDGET * pack.RB), float("nan"),
+                         device=DEVICE)
+        got, ref = launch(out), plain()
+        torch.cuda.synchronize()
+        err = rel_err(got[:, :scored], ref[:, :scored])
+        untouched = bool(torch.isnan(got[:, scored:]).all())
+        finite = bool(torch.isfinite(got[:, :scored]).all())
+        log("2 kernels", kernel=name, check="edge", b=b, **at, rel_err=err,
+            tol=IVF_KERNEL_RTOL, junk_tiles_unwritten=untouched)
+        if not (finite and untouched and err <= IVF_KERNEL_RTOL):
+            raise AssertionError(f"{name} at b={b} {at}: rel_err {err}, "
+                                 f"finite {finite}, junk unwritten {untouched}")
+        return err
+
+    worst = {"C": 0.0, "D": 0.0}
+    for b in IVF_EDGE_BATCHES:
+        for dim, sq4 in IVF_EDGE_C:
+            codes = codes_of(dim // 2 if sq4 else dim, torch.int8)
+            q = torch.randn(b, dim, generator=gen).to(DEVICE, torch.bfloat16)
+            worst["C"] = max(worst["C"], check(
+                "ivf_pack_score", b,
+                lambda out: pack.pack_score(q, codes, blk, sq4=sq4, out=out),
+                lambda: pack.pack_score_plain(q, codes, blk, sq4=sq4),
+                dim=dim, sq4=sq4))
+        for m, ksub in IVF_EDGE_D:
+            codes = codes_of(m if ksub == 256 else m // 2, torch.uint8)
+            lut = torch.randn(b, m, ksub, generator=gen).to(DEVICE,
+                                                           torch.bfloat16)
+            worst["D"] = max(worst["D"], check(
+                "pq_pack_score", b,
+                lambda out: pack.pq_pack_score(lut, codes, blk, out=out),
+                lambda: pack.pq_pack_score_plain(lut, codes, blk),
+                m=m, ksub=ksub))
+    return worst
 
 
 def synthetic_corpus(rng, n_words=3000):
@@ -865,6 +987,7 @@ def main():
     kernel_rows = phase_kernels()
     bwd_rows = phase_attention_bwd()
     ivf_rows = phase_ivf_kernels()
+    ivf_edge_err = phase_ivf_edges()
 
     # ---- 3. dump (main path starts: launch counters from zero)
     rng = np.random.default_rng(SEED)
@@ -1009,6 +1132,8 @@ def main():
         "launches": ivf_launches["C"],
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["C"]),
         **timing(ivf_rows["C"][0], *ivf_rows["C"]),
+        "product_only_ms": [r["product_only_ms"] for r in ivf_rows["C"]],
+        "edge_rel_err": ivf_edge_err["C"],
         "at": ivf_rows["C"][0]["at"]}, {
         "name": "pq_pack_score", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/pq_pack_score.cu",
@@ -1016,6 +1141,7 @@ def main():
         "launches": ivf_launches["D"],
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["D"]),
         **timing(ivf_rows["D"][0], *ivf_rows["D"]),
+        "edge_rel_err": ivf_edge_err["D"],
         "at": ivf_rows["D"][0]["at"]}]}), flush=True)
     tmp_dir.cleanup()
     log("done", total_s=round(time.perf_counter() - t_start, 1))

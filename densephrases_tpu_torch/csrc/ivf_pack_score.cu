@@ -15,24 +15,40 @@
 // A tile whose first entry is pad_blk is left unwritten, as the TPU kernel
 // leaves it; the caller masks those columns.
 //
-// What bounds it on an H100: the serve shape (2 x 64 stacked queries, 768
-// dims, ~0.6M gathered rows at nprobe 16 over 1M rows) is 2*128*768*0.6M
-// = 0.12 TFLOP against ~0.45 GB of code rows. On the tensor cores the
-// code reads would bound it; this first version multiplies on the fp32
-// CUDA cores (exact: a bf16 x int8 product fits fp32), so the fp32 FMA
-// rate bounds it, ~2 ms at best.
-// What the design does about it:
-//   - one block per (256-row tile, group of BQ queries); a block reads its
-//     own 8 block-table entries (no scalar prefetch on this card) and
-//     clamps them into [0, pad_blk], so it never reads past n_rows;
-//   - each of the 256 threads owns one row of the tile and keeps its BQ
-//     query sums in registers; code chunks of 64 bytes per row are staged
-//     in shared memory with a padded row stride (17 words, no bank
-//     conflicts), the query chunk as fp32 is read as 16-byte broadcasts;
-//   - the code rows of a tile leave device memory once per query group:
-//     BQ = 32 reads them 4 times at the serve shape.
-// Tensor-core products (mma / wgmma) and cp.async / TMA staging are later
-// work.
+// What bounds it on an H100: at the serve shape (128 stacked queries, 768
+// dims, 443,040 gathered rows at nprobe 16 over 1M rows) the function moves
+// ~0.57 GB (the codes once, 0.23 GB of fp32 scores) and does 8.7e10 bf16
+// operations, so the bytes bound it (~0.17 ms) if the products run on the
+// tensor cores.
+//
+// Design: the products run on mma.sync.m16n8k16 (bf16 operands, fp32
+// accumulation). A is a tile of code rows: a lane reads 8 code bytes of
+// each of its rows straight from device memory and converts them to bf16
+// in registers, exactly (ivf_tiles.cuh: s8x2_to_bf16x2, u4x2_to_bf16x2).
+// B is the queries, kept whole in shared memory for the block's life. The
+// reduction runs over the dims in any order, so a k-block of 16 takes the
+// dims {8t .. 8t+3 : t = 0..3} of a 32-dim chunk (the next the other 16),
+// which lets a lane feed its A fragment from one 8-byte code load and its
+// B fragments of both k-blocks from one 16-byte shared load.
+//   - All the batch's query rows sit in one block, up to 128 (NT = 16
+//     n-tiles of 8), so every code row leaves device memory once; past
+//     128, more query groups along grid y. Smaller batches take NT = 2, 4
+//     or 8.
+//   - Each of the 8 warps takes one 32-row block-table entry (two m16
+//     tiles) against all the block's queries at a time, with a grid stride
+//     over the table, so a code row is loaded and converted once, and
+//     keeps the next 2 chunks (SQ4: 1) of its rows' codes in flight in
+//     registers ahead of the products. No barrier after the queries are
+//     loaded (with cp.async).
+//   - SQ4: one 8-byte load holds 8 packed bytes; the high nibbles are dims
+//     of the first half, the low nibbles the same dims of the second half.
+//     The query rows are stored as [first half | second half], each padded
+//     to 32 dims, so both halves take the same chunk offsets.
+//   - Query rows are padded so their stride is 64 bytes past a multiple of
+//     128: the 16-byte B loads of a quarter warp (2 rows x 64 bytes) hit
+//     distinct banks.
+//   - Output: each C fragment store writes 8 consecutive columns of 4
+//     query rows, whole 32-byte sectors.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // and loaded with ctypes (densephrases_tpu_torch/utils/cuda_build.py).
@@ -41,163 +57,227 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"  // mma_bf16, cp_async_commit / _wait
+#include "ivf_tiles.cuh"
+
 namespace {
 
-constexpr int kRB = 32;              // rows per block-table entry
-constexpr int kTPB = 8;              // entries per scored tile
-constexpr int kTile = kRB * kTPB;    // 256 rows, one per thread
-constexpr int kChunk = 64;           // code bytes of a row staged per step
-constexpr int kWords = kChunk / 4;   // 16 words
-constexpr int kStride = kWords + 1;  // padded row stride in words
+using ivf::bf16;
+using ivf::kRB;
 
-template <int BQ, bool SQ4>
-__global__ void __launch_bounds__(kTile)
-    ivf_pack_score_kernel(const __nv_bfloat16* __restrict__ q,
-                          const int8_t* __restrict__ codes,
-                          const int* __restrict__ blk, float* __restrict__ out,
-                          int n_q, int dim, int code_bytes, int pad_blk,
-                          int n_cols) {
-  constexpr int kQDims = SQ4 ? 2 * kChunk : kChunk;
-  __shared__ uint32_t cs[kTile * kStride];
-  __shared__ __align__(16) float qs[BQ][kQDims];
-  __shared__ int rows0[kTPB];
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
 
-  const int tile = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
-  const int t = threadIdx.x;
-  // an all-junk tile: every thread reads the same entry, so all return
-  if (blk[tile * kTPB] == pad_blk) return;
-  if (t < kTPB) {
-    const int b = blk[tile * kTPB + t];
-    rows0[t] = min(max(b, 0), pad_blk) * kRB;
+// 8 code bytes of a row (dims 32c + 8t .. +8 of a chunk), zeros past the
+// row's end: one 8-byte load (VEC 8) or two 4-byte loads (VEC 4).
+template <int VEC>
+__device__ __forceinline__ uint2 load8(const int8_t* row, int o,
+                                       int code_bytes) {
+  uint2 v = make_uint2(0, 0);
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(row) + o;
+  if constexpr (VEC == 8) {
+    if (o < code_bytes) v = __ldg(reinterpret_cast<const uint2*>(p));
+  } else {
+    if (o < code_bytes) v.x = __ldg(reinterpret_cast<const uint32_t*>(p));
+    if (o + 4 < code_bytes) v.y = __ldg(reinterpret_cast<const uint32_t*>(p + 4));
   }
-  const int half = dim / 2;
-
-  float acc[BQ];
-#pragma unroll
-  for (int i = 0; i < BQ; ++i) acc[i] = 0.f;
-
-  for (int c0 = 0; c0 < code_bytes; c0 += kChunk) {
-    const int width = min(kChunk, code_bytes - c0);  // a multiple of 4
-    const int wpr = width / 4;
-    __syncthreads();  // rows0 written; the previous chunk fully consumed
-    for (int i = t; i < kTile * kWords; i += kTile) {
-      const int r = i / kWords;
-      const int w = i % kWords;
-      uint32_t v = 0;
-      if (w < wpr) {
-        const size_t row = static_cast<size_t>(rows0[r / kRB] + r % kRB);
-        v = *reinterpret_cast<const uint32_t*>(codes + row * code_bytes + c0 +
-                                               4 * w);
-      }
-      cs[r * kStride + w] = v;
-    }
-    for (int i = t; i < BQ * kQDims; i += kTile) {
-      const int qb = i / kQDims;
-      const int k = i % kQDims;
-      const int kk = k % kChunk;
-      float v = 0.f;
-      if (q0 + qb < n_q && kk < width) {
-        const int d = (SQ4 && k >= kChunk) ? half + c0 + kk : c0 + kk;
-        v = __bfloat162float(q[static_cast<size_t>(q0 + qb) * dim + d]);
-      }
-      qs[qb][k] = v;
-    }
-    __syncthreads();
-
-    const uint32_t* row = cs + t * kStride;
-    for (int w = 0; w < wpr; ++w) {
-      const uint32_t word = row[w];
-      if (SQ4) {
-        float hi[4], lo[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t byte = (word >> (8 * j)) & 0xFFu;
-          hi[j] = static_cast<float>(byte >> 4);
-          lo[j] = static_cast<float>(byte & 0xFu);
-        }
-#pragma unroll
-        for (int qb = 0; qb < BQ; ++qb) {
-          const float4 qh = *reinterpret_cast<const float4*>(&qs[qb][4 * w]);
-          const float4 ql =
-              *reinterpret_cast<const float4*>(&qs[qb][kChunk + 4 * w]);
-          float a = acc[qb];
-          a = fmaf(qh.x, hi[0], a);
-          a = fmaf(qh.y, hi[1], a);
-          a = fmaf(qh.z, hi[2], a);
-          a = fmaf(qh.w, hi[3], a);
-          a = fmaf(ql.x, lo[0], a);
-          a = fmaf(ql.y, lo[1], a);
-          a = fmaf(ql.z, lo[2], a);
-          a = fmaf(ql.w, lo[3], a);
-          acc[qb] = a;
-        }
-      } else {
-        float c[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)  // sign-extend each int8 code
-          c[j] = static_cast<float>(
-              static_cast<int8_t>((word >> (8 * j)) & 0xFFu));
-#pragma unroll
-        for (int qb = 0; qb < BQ; ++qb) {
-          const float4 qv = *reinterpret_cast<const float4*>(&qs[qb][4 * w]);
-          float a = acc[qb];
-          a = fmaf(qv.x, c[0], a);
-          a = fmaf(qv.y, c[1], a);
-          a = fmaf(qv.z, c[2], a);
-          a = fmaf(qv.w, c[3], a);
-          acc[qb] = a;
-        }
-      }
-    }
-  }
-
-  const size_t col = static_cast<size_t>(tile) * kTile + t;
-#pragma unroll
-  for (int qb = 0; qb < BQ; ++qb)
-    if (q0 + qb < n_q) out[static_cast<size_t>(q0 + qb) * n_cols + col] = acc[qb];
+  return v;
 }
 
-template <int BQ>
+// 8 code values as 4 bf16 pairs (byte pairs 0-1, 2-3, 4-5, 6-7). SQ8:
+// the signed bytes; SQ4: their high (hi) or low nibbles.
+template <bool SQ4>
+__device__ __forceinline__ void to_bf16(const uint2 v, uint32_t* r, bool hi) {
+  const uint32_t p[4] = {ivf::spread_pair(v.x, 0), ivf::spread_pair(v.x, 1),
+                         ivf::spread_pair(v.y, 0), ivf::spread_pair(v.y, 1)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    r[i] = SQ4 ? ivf::u4x2_to_bf16x2(p[i], hi) : ivf::s8x2_to_bf16x2(p[i]);
+}
+
+// acc[mt][nt] += rows x queries over one 32-dim chunk. r[s]: slot s's 4
+// bf16 pairs (slot s = row g + 8 s); qrow: this lane's query row at the
+// chunk's offset in the segment; nt-tiles 8 query rows apart.
+template <int NT>
+__device__ __forceinline__ void chunk_mma(float (&acc)[2][NT][4],
+                                          const uint32_t (&r)[4][4],
+                                          const bf16* qrow, int stride) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const uint4 b = *reinterpret_cast<const uint4*>(qrow + nt * 8 * stride);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const uint32_t* lo = r[2 * mt];      // row g (+16 mt)
+      const uint32_t* hi = r[2 * mt + 1];  // row g + 8 (+16 mt)
+      const uint32_t a0[4] = {lo[0], hi[0], lo[1], hi[1]};
+      const uint32_t a1[4] = {lo[2], hi[2], lo[3], hi[3]};
+      attn::mma_bf16(acc[mt][nt], a0, b.x, b.y);
+      attn::mma_bf16(acc[mt][nt], a1, b.z, b.w);
+    }
+  }
+}
+
+template <int NT, int VEC, bool SQ4>
+__global__ void __launch_bounds__(kThreads, 1)
+    ivf_scan(const bf16* __restrict__ q, const int8_t* __restrict__ codes,
+             const int* __restrict__ blk, float* __restrict__ out, int n_q,
+             int dim, int code_bytes, int pad_blk, int n_entries, int n_cols,
+             int seg_w, int stride) {
+  constexpr int kBQ = NT * 8;  // queries per block
+  // code chunks in flight per warp ahead of the products (an SQ4 chunk
+  // feeds twice the products)
+  constexpr int kDepth = SQ4 ? 1 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  const int q0 = blockIdx.y * kBQ;
+
+  // the query bank: row qb = [segment 0 | segment 1 (SQ4)], each seg_w
+  // wide, zeros past a segment's dims and for queries past n_q; 4 dims (8
+  // bytes) a copy, all in flight at once
+  {
+    const int seg_dims = SQ4 ? dim / 2 : dim;
+    const int units = stride / 4;
+    for (int i = threadIdx.x; i < kBQ * units; i += kThreads) {
+      const int qb = i / units, d0 = (i % units) * 4;
+      const int seg = d0 / seg_w, d = d0 % seg_w;
+      const bool ok = q0 + qb < n_q && seg < (SQ4 ? 2 : 1) && d < seg_dims;
+      ivf::cp_async8(qs + qb * stride + d0,
+                     ok ? q + static_cast<size_t>(q0 + qb) * dim +
+                              seg * seg_dims + d
+                        : q,
+                     ok);
+    }
+    attn::cp_async_commit();
+    attn::cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* qrow = qs + g * stride + 8 * t;
+  const int chunks = (code_bytes + 31) / 32;
+  for (int e = blockIdx.x * kWarps + warp; e < n_entries;
+       e += gridDim.x * kWarps) {
+    if (ivf::junk_tile(blk, e, pad_blk)) break;
+    const int8_t* rows =
+        codes + static_cast<size_t>(ivf::entry_row0(blk, e, pad_blk) + g) *
+                    code_bytes;
+    float acc[2][NT][4] = {};
+    uint2 buf[kDepth][4];
+#pragma unroll
+    for (int p = 0; p < kDepth; ++p)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        buf[p][s] = load8<VEC>(rows + 8 * s * code_bytes, 32 * p + 8 * t,
+                               code_bytes);
+    for (int c0 = 0; c0 < chunks; c0 += kDepth) {
+#pragma unroll
+      for (int p = 0; p < kDepth; ++p) {
+        const int c = c0 + p;
+        if (c >= chunks) break;
+        uint2 cur[4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          cur[s] = buf[p][s];
+          buf[p][s] = load8<VEC>(rows + 8 * s * code_bytes,
+                                 32 * (c + kDepth) + 8 * t, code_bytes);
+        }
+        uint32_t r[4][4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) to_bf16<SQ4>(cur[s], r[s], true);
+        chunk_mma<NT>(acc, r, qrow + 32 * c, stride);
+        if constexpr (SQ4) {
+#pragma unroll
+          for (int s = 0; s < 4; ++s) to_bf16<SQ4>(cur[s], r[s], false);
+          chunk_mma<NT>(acc, r, qrow + seg_w + 32 * c, stride);
+        }
+      }
+    }
+    // C fragment: (row g, queries 2t, 2t+1) and (row g + 8, the same)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const size_t col = static_cast<size_t>(e) * kRB + mt * 16 + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int qi = q0 + nt * 8 + 2 * t;
+        if (qi < n_q) {
+          out[static_cast<size_t>(qi) * n_cols + col] = acc[mt][nt][0];
+          out[static_cast<size_t>(qi) * n_cols + col + 8] = acc[mt][nt][2];
+        }
+        if (qi + 1 < n_q) {
+          out[static_cast<size_t>(qi + 1) * n_cols + col] = acc[mt][nt][1];
+          out[static_cast<size_t>(qi + 1) * n_cols + col + 8] = acc[mt][nt][3];
+        }
+      }
+    }
+  }
+}
+
+template <int NT, int VEC, bool SQ4>
 int launch(const void* q, const void* codes, const int* blk, float* out,
-           int n_q, int dim, int code_bytes, int sq4, int budget, int n_rows,
+           int n_q, int dim, int code_bytes, int budget, int n_rows,
            cudaStream_t stream) {
-  const dim3 grid(budget / kTPB, (n_q + BQ - 1) / BQ);
-  const int pad_blk = n_rows / kRB - 1;
-  const int n_cols = budget * kRB;
-  if (sq4)
-    ivf_pack_score_kernel<BQ, true><<<grid, kTile, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const int8_t*>(codes), blk, out, n_q, dim, code_bytes,
-        pad_blk, n_cols);
-  else
-    ivf_pack_score_kernel<BQ, false><<<grid, kTile, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const int8_t*>(codes), blk, out, n_q, dim, code_bytes,
-        pad_blk, n_cols);
+  auto kernel = ivf_scan<NT, VEC, SQ4>;
+  constexpr int kBQ = NT * 8;
+  // the layout ops/ivf_pack.py:scan_plan sizes
+  const int seg_w = (code_bytes + 31) / 32 * 32;
+  const int width = (SQ4 ? 2 : 1) * seg_w;
+  const int stride = width + (width % 64 == 0 ? 32 : 0);
+  const size_t smem = static_cast<size_t>(kBQ) * stride * 2;
+  if (smem > ivf::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = ivf::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups = (n_q + kBQ - 1) / kBQ;
+  int gx = 1;
+  err = ivf::resident_grid_x(kernel, kThreads, smem, groups, kWarps, budget,
+                             &gx);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(gx, groups), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const int8_t*>(codes), blk, out,
+      n_q, dim, code_bytes, n_rows / kRB - 1, budget, budget * kRB, seg_w,
+      stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT, int VEC>
+int launch_sq(int sq4, const void* q, const void* codes, const int* blk,
+              float* out, int n_q, int dim, int code_bytes, int budget,
+              int n_rows, cudaStream_t s) {
+  if (sq4)
+    return launch<NT, VEC, true>(q, codes, blk, out, n_q, dim, code_bytes,
+                                 budget, n_rows, s);
+  return launch<NT, VEC, false>(q, codes, blk, out, n_q, dim, code_bytes,
+                                budget, n_rows, s);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched). The caller
-// checks devices, types, shapes and contiguity; this only refuses what it
-// cannot dispatch. Nothing is synchronised.
+// checks devices, types, shapes, contiguity and alignment and picks nt
+// (blocks of 8 nt queries: 2, 4, 8 or 16) and vec (bytes per code load: 8
+// or 4, dividing code_bytes and the codes' address) with
+// ops/ivf_pack.py:scan_plan; this only refuses what it cannot dispatch.
+// Nothing is synchronised.
 extern "C" int dph_ivf_pack_score(const void* q, const void* codes,
                                   const int* blk, float* out, int n_q,
                                   int dim, int code_bytes, int sq4,
-                                  int budget, int n_rows, int bq,
+                                  int budget, int n_rows, int nt, int vec,
                                   void* stream) {
-  if (n_q <= 0 || budget <= 0 || budget % kTPB || n_rows < kRB ||
-      n_rows % kRB || code_bytes % 4 ||
-      code_bytes != (sq4 ? dim / 2 : dim) || (sq4 && dim % 2))
+  if (n_q <= 0 || budget <= 0 || budget % ivf::kTPB || n_rows < kRB ||
+      n_rows % kRB || code_bytes <= 0 || code_bytes % 4 ||
+      code_bytes != (sq4 ? dim / 2 : dim) || (sq4 && dim % 2) ||
+      code_bytes % vec)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bq) {
-    case 4: return launch<4>(q, codes, blk, out, n_q, dim, code_bytes, sq4, budget, n_rows, s);
-    case 8: return launch<8>(q, codes, blk, out, n_q, dim, code_bytes, sq4, budget, n_rows, s);
-    case 16: return launch<16>(q, codes, blk, out, n_q, dim, code_bytes, sq4, budget, n_rows, s);
-    case 32: return launch<32>(q, codes, blk, out, n_q, dim, code_bytes, sq4, budget, n_rows, s);
+  switch (nt * 100 + vec) {
+    case 1608: return launch_sq<16, 8>(sq4, q, codes, blk, out, n_q, dim, code_bytes, budget, n_rows, s);
+    case 1604: return launch_sq<16, 4>(sq4, q, codes, blk, out, n_q, dim, code_bytes, budget, n_rows, s);
+    case 808: return launch_sq<8, 8>(sq4, q, codes, blk, out, n_q, dim, code_bytes, budget, n_rows, s);
+    case 804: return launch_sq<8, 4>(sq4, q, codes, blk, out, n_q, dim, code_bytes, budget, n_rows, s);
+    case 408: return launch_sq<4, 8>(sq4, q, codes, blk, out, n_q, dim, code_bytes, budget, n_rows, s);
+    case 404: return launch_sq<4, 4>(sq4, q, codes, blk, out, n_q, dim, code_bytes, budget, n_rows, s);
+    case 208: return launch_sq<2, 8>(sq4, q, codes, blk, out, n_q, dim, code_bytes, budget, n_rows, s);
+    case 204: return launch_sq<2, 4>(sq4, q, codes, blk, out, n_q, dim, code_bytes, budget, n_rows, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

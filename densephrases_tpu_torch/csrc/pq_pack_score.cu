@@ -6,35 +6,47 @@
 //
 //   raw[b, j*32 + r] = sum_m LUT[b, m, code[blk[j]*32 + r, m]]
 //
-// lut: [n_q, M, ksub] bf16 in its natural layout (the TPU kernel's k-major
-// and one-hot permutations were a matrix-unit layout and are not carried
-// over); codes: [n_rows, code_bytes] uint8, n_rows % 32 == 0, the last
-// 32-row block all zeros (pad_blk). 8-bit: ksub = 256, one byte a
-// subspace (code_bytes == M). 4-bit: ksub = 16, byte i holds subspace 2i
-// in its low nibble and 2i+1 in its high nibble (code_bytes == M/2).
-// blk: [budget] int32, budget % 8 == 0, junk entries (== pad_blk) form a
-// suffix; out: [n_q, budget*32] fp32. Tiles from the first junk one on are
-// left unwritten; the caller masks those columns.
+// lut: [n_q, M, ksub] bf16 in its natural layout; codes: [n_rows,
+// code_bytes] uint8, n_rows % 32 == 0, the last 32-row block all zeros
+// (pad_blk). 8-bit: ksub = 256, one byte a subspace (code_bytes == M).
+// 4-bit: ksub = 16, byte i holds subspace 2i in its low nibble and 2i+1 in
+// its high nibble (code_bytes == M/2). blk: [budget] int32, budget % 8 ==
+// 0, junk entries (== pad_blk) form a suffix; out: [n_q, budget*32] fp32.
+// Tiles from the first all-junk one on are left unwritten; the caller masks
+// those columns.
 //
 // What bounds it on an H100: at the serve shape (128 stacked queries,
-// OPQ96 or OPQ192x4, ~0.6M gathered rows) the code rows are only ~57 MB,
-// but every (query, row) pair costs M lookups: ~7e9 (8-bit) or ~1.5e10
-// (4-bit) gathers from shared memory, so shared-memory gather throughput
-// and its bank conflicts bound it.
-// What the design does about it:
-//   - the LUTs of a group of BQ queries sit in dynamic shared memory (48 KB
-//     a query at M=96 x 256, 6 KB at M=192 x 16; BQ sized by the wrapper
-//     to stay under 227 KB), and each block walks many 256-row tiles
-//     (grid-stride), so a LUT is loaded into shared memory once per block
-//     and not once per tile;
-//   - a tile's code rows are staged in shared memory with coalesced 4-byte
-//     loads (a 32-row block is one contiguous run of bytes) and stored
-//     transposed, [byte][row], so the 256 threads, one per row, read
-//     consecutive bytes without conflicts;
-//   - each thread sums LUT[q][m][code] over m in fp32 for its row and its
-//     BQ queries, in subspace order.
-// One-hot tensor-core formulations, cp.async / TMA staging and a fused
-// per-tile top-k are later work.
+// OPQ96 or OPQ192x4, 443,040 gathered rows) the code rows are only ~42 MB,
+// but every (query, row) pair costs M lookups: 5.4e9 (8-bit) or 1.1e10
+// (4-bit). The 8-bit path is bound by shared-memory gathers and their bank
+// conflicts; the 4-bit path runs the lookups as products on the tensor
+// cores, 3.5e14 bf16 operations.
+//
+// 8-bit design (pq_scan8): the block's BQ queries' LUTs sit in shared
+// memory query-minor, [M][256][BQ] bf16, re-laid by the block as it loads
+// them, so a code byte names one contiguous BQ-vector: one 8-byte load
+// (BQ = 4) replaces four 2-byte ones and a bank conflict costs once per
+// vector. 1,024 threads (32 warps) a block, one code row a thread; a warp
+// takes one 32-row block-table entry at a time, reads its rows' code bytes
+// straight into registers with VEC-byte loads (VEC = 16, 4 or 1 by the row
+// width) and prefetches the next chunk of the row behind the current
+// chunk's gathers. No code tile in shared memory and no barrier after the
+// LUT is loaded.
+//
+// 4-bit design (pq_scan4): the TPU kernel's one-hot product in Hopper form.
+// For subspace m, the A operand of mma.sync.m16n8k16 (bf16, fp32
+// accumulation) is the one-hot of 16 rows' nibbles over the 16 codes (k =
+// code), built in registers with one funnel shift per bf16 pair; the B
+// operand is LUT[queries, m, 0:16] from shared memory via ldmatrix (the
+// natural layout is B's own [n][k] layout; a 16-byte pad per query row
+// keeps ldmatrix free of bank conflicts). Each row has one non-zero per
+// k-block, so every product is an exact LUT entry and the result is the
+// plain twin's fp32 sum in another order. A warp takes a 32-row entry (two
+// m16 tiles) against the block's BQ = 16 or 32 queries; one A fragment
+// serves every 8-query n-tile and one B fragment both row tiles. 16 warps
+// a block. Measured at M = 192 (PERF.md): the 8-bit path's vector gathers
+// from a [M][16][8] LUT took 1.30 ms against this design's 0.85; four m16
+// tiles a warp (halving the ldmatrix reads) 0.91 against two tiles' 0.83.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // and loaded with ctypes (densephrases_tpu_torch/utils/cuda_build.py).
@@ -43,172 +55,323 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "attention_tiles.cuh"  // mma_bf16, ldsm_x4, cp_async16
+#include "ivf_tiles.cuh"
 
 namespace {
 
-constexpr int kRB = 32;            // rows per block-table entry
-constexpr int kTPB = 8;            // entries per scored tile
-constexpr int kTile = kRB * kTPB;  // 256 rows, one per thread
-// a block's shared-memory ceiling (232,448 bytes), less room for the
-// static rows0 table
-constexpr int kMaxSmem = 232448 - 1024;
+using ivf::bf16;
+using ivf::kRB;
 
-__host__ __device__ size_t lut_bytes(int bq, int m, int ksub) {
-  return static_cast<size_t>(bq) * m * ksub * sizeof(__nv_bfloat16);
+constexpr int kThreads8 = 1024;  // 8-bit: 32 warps, one row a thread
+constexpr int kThreads4 = 512;   // 4-bit: 16 warps, 32 rows a warp
+constexpr int kPad4 = 8;         // bf16 of padding per query row (4-bit)
+
+// ------------------------------------------------------------------ 8-bit
+// Two bf16 (the halves of w, the first in the low half) added in fp32.
+__device__ __forceinline__ void add_pair(float* acc, uint32_t w) {
+  acc[0] += __uint_as_float(w << 16);
+  acc[1] += __uint_as_float(w & 0xFFFF0000u);
 }
 
-__host__ __device__ size_t smem_bytes(int bq, int m, int ksub, int code_bytes) {
-  return lut_bytes(bq, m, ksub) + static_cast<size_t>(code_bytes) * kTile;
+// acc[0:BQ] += the BQ-vector at element e of the query-minor LUT.
+template <int BQ>
+__device__ __forceinline__ void gather_add(float* acc, const bf16* lut_s,
+                                           int e) {
+  if constexpr (BQ == 1) {
+    acc[0] += __uint_as_float(
+        static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(lut_s)[e])
+        << 16);
+  } else if constexpr (BQ == 2) {
+    add_pair(acc, reinterpret_cast<const uint32_t*>(lut_s)[e]);
+  } else if constexpr (BQ == 4) {
+    const uint2 v = reinterpret_cast<const uint2*>(lut_s)[e];
+    add_pair(acc, v.x);
+    add_pair(acc + 2, v.y);
+  } else {
+    const uint4 v = reinterpret_cast<const uint4*>(lut_s)[e];
+    add_pair(acc, v.x);
+    add_pair(acc + 2, v.y);
+    add_pair(acc + 4, v.z);
+    add_pair(acc + 6, v.w);
+  }
 }
 
-template <int BQ, bool NIB>
-__global__ void __launch_bounds__(kTile)
-    pq_pack_score_kernel(const __nv_bfloat16* __restrict__ lut,
-                         const uint8_t* __restrict__ codes,
-                         const int* __restrict__ blk, float* __restrict__ out,
-                         int n_q, int m, int ksub, int code_bytes,
-                         int pad_blk, int n_tiles, int n_cols) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int rows0[kTPB];
-  const int lut_elems = m * ksub;  // a multiple of 8 (ksub is 16 or 256)
-  __nv_bfloat16* lut_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  uint8_t* codes_s = smem + lut_bytes(BQ, m, ksub);  // [code_bytes][256]
+// Store BQ bf16 (packed two a word, the first query in the low half) as
+// the vector at element e of the query-minor LUT.
+template <int BQ>
+__device__ __forceinline__ void store_vec(bf16* lut_s, int e,
+                                          const uint32_t* p) {
+  if constexpr (BQ == 1) {
+    reinterpret_cast<uint16_t*>(lut_s)[e] = static_cast<uint16_t>(p[0]);
+  } else if constexpr (BQ == 2) {
+    reinterpret_cast<uint32_t*>(lut_s)[e] = p[0];
+  } else if constexpr (BQ == 4) {
+    reinterpret_cast<uint2*>(lut_s)[e] = make_uint2(p[0], p[1]);
+  } else {
+    reinterpret_cast<uint4*>(lut_s)[e] = make_uint4(p[0], p[1], p[2], p[3]);
+  }
+}
 
-  const int t = threadIdx.x;
-  const int q0 = blockIdx.y * BQ;
-
-  // the group's LUTs, 16 bytes at a time; queries past n_q read as zeros
-  {
-    const int vecs = lut_elems / 8;
-    uint4* dst = reinterpret_cast<uint4*>(lut_s);
-    const uint4* src = reinterpret_cast<const uint4*>(lut);
-    for (int i = t; i < BQ * vecs; i += kTile) {
-      const int qb = i / vecs;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (q0 + qb < n_q) v = src[static_cast<size_t>(q0) * vecs + i];
-      dst[i] = v;
+// The group's natural-layout LUTs [BQ][M][256] into shared memory as
+// [M][256][BQ]: a thread reads 8 codes of one subspace for each query (16
+// bytes each) and writes 8 BQ-vectors. Queries past n_q read as zeros.
+template <int BQ>
+__device__ void load_lut_query_minor(bf16* lut_s, const bf16* lut, int q0,
+                                     int n_q, int m) {
+  const int runs = m * 256 / 8;
+  for (int i = threadIdx.x; i < runs; i += blockDim.x) {
+    uint4 v[BQ];
+#pragma unroll
+    for (int qb = 0; qb < BQ; ++qb) {
+      v[qb] = make_uint4(0, 0, 0, 0);
+      if (q0 + qb < n_q)
+        v[qb] = __ldg(reinterpret_cast<const uint4*>(
+                          lut + static_cast<size_t>(q0 + qb) * m * 256) +
+                      i);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t p[BQ > 1 ? BQ / 2 : 1] = {};
+#pragma unroll
+      for (int qb = 0; qb < BQ; ++qb) {
+        const uint32_t w = (j >> 1) == 0   ? v[qb].x
+                           : (j >> 1) == 1 ? v[qb].y
+                           : (j >> 1) == 2 ? v[qb].z
+                                           : v[qb].w;
+        const uint32_t h = (w >> (16 * (j & 1))) & 0xFFFFu;
+        p[qb >> 1] |= h << (16 * (qb & 1));
+      }
+      store_vec<BQ>(lut_s, i * 8 + j, p);
     }
   }
+}
 
-  const int words_per_slot = kRB * code_bytes / 4;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    __syncthreads();  // the LUT is loaded; the previous tile is consumed
-    // junk entries form a suffix, so every later tile of this block is junk
-    if (blk[tile * kTPB] == pad_blk) break;
-    if (t < kTPB) {
-      const int b = blk[tile * kTPB + t];
-      rows0[t] = min(max(b, 0), pad_blk) * kRB;
-    }
-    __syncthreads();
-    for (int i = t; i < kTPB * words_per_slot; i += kTile) {
-      const int s = i / words_per_slot;
-      const int w = i % words_per_slot;
-      const uint32_t v = reinterpret_cast<const uint32_t*>(
-          codes + static_cast<size_t>(rows0[s]) * code_bytes)[w];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int o = 4 * w + j;
-        const int r = s * kRB + o / code_bytes;
-        codes_s[(o % code_bytes) * kTile + r] =
-            static_cast<uint8_t>((v >> (8 * j)) & 0xFFu);
-      }
-    }
-    __syncthreads();
+template <int BQ, int VEC>
+__global__ void __launch_bounds__(kThreads8, 1)
+    pq_scan8(const bf16* __restrict__ lut, const uint8_t* __restrict__ codes,
+             const int* __restrict__ blk, float* __restrict__ out, int n_q,
+             int m, int pad_blk, int n_entries, int n_cols) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* lut_s = reinterpret_cast<bf16*>(smem);
+  const int q0 = blockIdx.y * BQ;
+  load_lut_query_minor<BQ>(lut_s, lut, q0, n_q, m);
+  __syncthreads();
 
+  constexpr int kWarps = kThreads8 / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunks = m / VEC;  // code_bytes == m, a multiple of VEC
+  for (int e = blockIdx.x * kWarps + warp; e < n_entries;
+       e += gridDim.x * kWarps) {
+    if (ivf::junk_tile(blk, e, pad_blk)) break;
+    const uint8_t* row =
+        codes + static_cast<size_t>(ivf::entry_row0(blk, e, pad_blk) + lane) * m;
     float acc[BQ];
 #pragma unroll
     for (int qb = 0; qb < BQ; ++qb) acc[qb] = 0.f;
-    for (int i = 0; i < code_bytes; ++i) {
-      const int byte = codes_s[i * kTile + t];
-      if (NIB) {
-        const int e0 = (2 * i) * ksub + (byte & 0xF);
-        const int e1 = (2 * i + 1) * ksub + (byte >> 4);
+    ivf::Chunk<VEC> cur = ivf::load_chunk<VEC>(row);
+    for (int c = 0; c < chunks; ++c) {
+      ivf::Chunk<VEC> nxt = ivf::zero_chunk<VEC>();
+      if (c + 1 < chunks) nxt = ivf::load_chunk<VEC>(row + (c + 1) * VEC);
+      const int base = c * VEC * 256;
 #pragma unroll
-        for (int qb = 0; qb < BQ; ++qb) {
-          const __nv_bfloat16* l = lut_s + qb * lut_elems;
-          acc[qb] += __bfloat162float(l[e0]);
-          acc[qb] += __bfloat162float(l[e1]);
-        }
-      } else {
-        const int e = i * ksub + byte;
-#pragma unroll
-        for (int qb = 0; qb < BQ; ++qb)
-          acc[qb] += __bfloat162float(lut_s[qb * lut_elems + e]);
-      }
+      for (int i = 0; i < VEC; ++i)
+        gather_add<BQ>(acc, lut_s, base + i * 256 + ivf::chunk_byte(cur, i));
+      cur = nxt;
     }
-    const size_t col = static_cast<size_t>(tile) * kTile + t;
+    const size_t col = static_cast<size_t>(e) * kRB + lane;
 #pragma unroll
     for (int qb = 0; qb < BQ; ++qb)
-      if (q0 + qb < n_q)
-        out[static_cast<size_t>(q0 + qb) * n_cols + col] = acc[qb];
+      if (q0 + qb < n_q) out[static_cast<size_t>(q0 + qb) * n_cols + col] = acc[qb];
   }
 }
 
-template <int BQ, bool NIB>
-int launch_one(const void* lut, const void* codes, const int* blk, float* out,
-               int n_q, int m, int ksub, int code_bytes, int budget,
-               int n_rows, cudaStream_t stream) {
-  auto kernel = pq_pack_score_kernel<BQ, NIB>;
-  const size_t smem = smem_bytes(BQ, m, ksub, code_bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// ------------------------------------------------------------------ 4-bit
+// A bf16 pair of the one-hot of a nibble over codes k and k+1, from s = 16
+// (nibble - k) as an unsigned shift: 1.0 (0x3F80) in the low half when s is
+// 0, in the high half when s is 16, else 0. One funnel shift: the high word
+// of {0x3F80 : 0} << min(s, 32); a negative difference wraps to a shift
+// past 32, which clamps to 32 and gives 0.
+__device__ __forceinline__ uint32_t onehot2(uint32_t s) {
+  return __funnelshift_lc(0u, 0x3F80u, s);
+}
+
+template <int NT, int VEC>
+__global__ void __launch_bounds__(kThreads4, 1)
+    pq_scan4(const bf16* __restrict__ lut, const uint8_t* __restrict__ codes,
+             const int* __restrict__ blk, float* __restrict__ out, int n_q,
+             int m, int pad_blk, int n_entries, int n_cols) {
+  static_assert(NT % 2 == 0, "n-tiles are read two at a time by ldmatrix");
+  constexpr int BQ = NT * 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* lut_s = reinterpret_cast<bf16*>(smem);
+  const int stride = m * 16 + kPad4;  // bf16 per query row
+  const int q0 = blockIdx.y * BQ;
+  {
+    const int vecs = m * 2;  // 16-byte vectors per query's LUT
+    for (int i = threadIdx.x; i < BQ * vecs; i += blockDim.x) {
+      const int qb = i / vecs, v = i % vecs;
+      const bool ok = q0 + qb < n_q;
+      attn::cp_async16(lut_s + qb * stride + 8 * v,
+                       ok ? lut + (static_cast<size_t>(q0 + qb) * m * 2 + v) * 8
+                          : lut,
+                       ok);
+    }
+    attn::cp_async_commit();
+    attn::cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  constexpr int kWarps = kThreads4 / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint32_t g = lane >> 2, t2 = 2 * (lane & 3), t32 = 16 * t2;
+  const int code_bytes = m / 2;
+  const int chunks = code_bytes / VEC;
+  // ldmatrix.x4 rows: (queries 0-7, codes 0-7), (0-7, 8-15), (8-15, 0-7),
+  // (8-15, 8-15) of a pair of n-tiles and one subspace
+  const bf16* b_lane =
+      lut_s + ((lane & 7) + (lane >> 4) * 8) * stride + ((lane >> 3) & 1) * 8;
+  for (int e = blockIdx.x * kWarps + warp; e < n_entries;
+       e += gridDim.x * kWarps) {
+    if (ivf::junk_tile(blk, e, pad_blk)) break;
+    const uint8_t* rows =
+        codes + static_cast<size_t>(ivf::entry_row0(blk, e, pad_blk) + g) *
+                    code_bytes;
+    // slot s: row g + 8 s of the entry; m-tile mt takes slots 2 mt (row g)
+    // and 2 mt + 1 (row g + 8)
+    ivf::Chunk<VEC> cur[4], nxt[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      cur[s] = ivf::load_chunk<VEC>(rows + 8 * s * code_bytes);
+    float acc[2][NT][4] = {};
+    for (int c = 0; c < chunks; ++c) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        nxt[s] = ivf::zero_chunk<VEC>();
+        if (c + 1 < chunks)
+          nxt[s] = ivf::load_chunk<VEC>(rows + 8 * s * code_bytes +
+                                        (c + 1) * VEC);
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        uint32_t byte[4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) byte[s] = ivf::chunk_byte(cur[s], i);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // low nibble: subspace 2i, high: 2i+1
+          const int sub = 2 * (c * VEC + i) + h;
+          uint32_t a[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            // 16 x nibble of row g (lo) and row g + 8 (hi), less 16 x 2t
+            const uint32_t lo = (h ? byte[2 * mt] : byte[2 * mt] << 4) & 0xF0u;
+            const uint32_t hi =
+                (h ? byte[2 * mt + 1] : byte[2 * mt + 1] << 4) & 0xF0u;
+            a[mt][0] = onehot2(lo - t32);
+            a[mt][1] = onehot2(hi - t32);
+            a[mt][2] = onehot2(lo - t32 - 128u);  // codes 8 + 2t, 9 + 2t
+            a[mt][3] = onehot2(hi - t32 - 128u);
+          }
+#pragma unroll
+          for (int np = 0; np < NT; np += 2) {
+            uint32_t b[4];
+            attn::ldsm_x4(b, b_lane + np * 8 * stride + sub * 16);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              attn::mma_bf16(acc[mt][np], a[mt], b[0], b[1]);
+              attn::mma_bf16(acc[mt][np + 1], a[mt], b[2], b[3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) cur[s] = nxt[s];
+    }
+    // C fragment: (row g, queries 2t, 2t+1) and (row g + 8, the same)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const size_t col = static_cast<size_t>(e) * kRB + mt * 16 + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int q = q0 + nt * 8 + static_cast<int>(t2);
+        if (q < n_q) {
+          out[static_cast<size_t>(q) * n_cols + col] = acc[mt][nt][0];
+          out[static_cast<size_t>(q) * n_cols + col + 8] = acc[mt][nt][2];
+        }
+        if (q + 1 < n_q) {
+          out[static_cast<size_t>(q + 1) * n_cols + col] = acc[mt][nt][1];
+          out[static_cast<size_t>(q + 1) * n_cols + col + 8] = acc[mt][nt][3];
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+template <typename Kernel>
+int launch(Kernel kernel, int threads, size_t smem, int bq, const void* lut,
+           const void* codes, const int* blk, float* out, int n_q, int m,
+           int budget, int n_rows, cudaStream_t stream) {
+  cudaError_t err = ivf::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kTile, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  const int n_tiles = budget / kTPB;
-  const int groups = (n_q + BQ - 1) / BQ;
-  // one wave of resident blocks: every block walks n_tiles / grid.x tiles
-  const int gx =
-      std::max(1, std::min(n_tiles, std::max(per_sm, 1) * n_sm / groups));
-  pq_pack_score_kernel<BQ, NIB><<<dim3(gx, groups), kTile, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(lut),
-      static_cast<const uint8_t*>(codes), blk, out, n_q, m, ksub, code_bytes,
-      n_rows / kRB - 1, n_tiles, budget * kRB);
+  const int groups = (n_q + bq - 1) / bq;
+  int gx = 1;
+  err = ivf::resident_grid_x(kernel, threads, smem, groups, threads / 32,
+                             budget, &gx);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(gx, groups), threads, smem, stream>>>(
+      static_cast<const bf16*>(lut), static_cast<const uint8_t*>(codes), blk,
+      out, n_q, m, n_rows / kRB - 1, budget, budget * kRB);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BQ>
-int launch(const void* lut, const void* codes, const int* blk, float* out,
-           int n_q, int m, int ksub, int code_bytes, int budget, int n_rows,
-           cudaStream_t stream) {
-  if (ksub == 16)
-    return launch_one<BQ, true>(lut, codes, blk, out, n_q, m, ksub,
-                                code_bytes, budget, n_rows, stream);
-  return launch_one<BQ, false>(lut, codes, blk, out, n_q, m, ksub, code_bytes,
-                               budget, n_rows, stream);
+template <int VEC>
+int dispatch(int bq, int ksub, const void* lut, const void* codes,
+             const int* blk, float* out, int n_q, int m, int budget,
+             int n_rows, cudaStream_t s) {
+  if (ksub == 16) {
+    const size_t smem = static_cast<size_t>(bq) * (m * 16 + kPad4) * 2;
+    if (smem > ivf::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+    switch (bq) {
+      case 16: return launch(pq_scan4<2, VEC>, kThreads4, smem, bq, lut, codes, blk, out, n_q, m, budget, n_rows, s);
+      case 32: return launch(pq_scan4<4, VEC>, kThreads4, smem, bq, lut, codes, blk, out, n_q, m, budget, n_rows, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const size_t smem = static_cast<size_t>(bq) * m * 256 * 2;
+  if (smem > ivf::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  switch (bq) {
+    case 1: return launch(pq_scan8<1, VEC>, kThreads8, smem, bq, lut, codes, blk, out, n_q, m, budget, n_rows, s);
+    case 2: return launch(pq_scan8<2, VEC>, kThreads8, smem, bq, lut, codes, blk, out, n_q, m, budget, n_rows, s);
+    case 4: return launch(pq_scan8<4, VEC>, kThreads8, smem, bq, lut, codes, blk, out, n_q, m, budget, n_rows, s);
+    case 8: return launch(pq_scan8<8, VEC>, kThreads8, smem, bq, lut, codes, blk, out, n_q, m, budget, n_rows, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Returns a CUDA error code (0 = launched). The caller checks devices,
-// types, shapes and contiguity and picks bq so the LUTs fit in shared
-// memory; this only refuses what it cannot dispatch. Nothing is
-// synchronised.
+// types, shapes, contiguity and alignment and picks bq (queries per block:
+// 1, 2, 4 or 8 for ksub 256; 16 or 32 for ksub 16) and vec (bytes per code
+// load: 16, 4 or 1, dividing code_bytes and the codes' address) with
+// ops/ivf_pack.py:pq_plan; this only refuses what it cannot dispatch.
+// Nothing is synchronised.
 extern "C" int dph_pq_pack_score(const void* lut, const void* codes,
                                  const int* blk, float* out, int n_q, int m,
                                  int ksub, int code_bytes, int budget,
-                                 int n_rows, int bq, void* stream) {
+                                 int n_rows, int bq, int vec, void* stream) {
   const bool nib = ksub == 16;
-  if (n_q <= 0 || budget <= 0 || budget % kTPB || n_rows < kRB ||
+  if (n_q <= 0 || budget <= 0 || budget % ivf::kTPB || n_rows < kRB ||
       n_rows % kRB || !(ksub == 16 || ksub == 256) ||
-      code_bytes != (nib ? m / 2 : m) || (nib && m % 2) ||
-      smem_bytes(bq, m, ksub, code_bytes) > kMaxSmem)
+      code_bytes != (nib ? m / 2 : m) || (nib && m % 2) || code_bytes <= 0 ||
+      code_bytes % vec)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bq) {
-    case 1: return launch<1>(lut, codes, blk, out, n_q, m, ksub, code_bytes, budget, n_rows, s);
-    case 2: return launch<2>(lut, codes, blk, out, n_q, m, ksub, code_bytes, budget, n_rows, s);
-    case 4: return launch<4>(lut, codes, blk, out, n_q, m, ksub, code_bytes, budget, n_rows, s);
-    case 8: return launch<8>(lut, codes, blk, out, n_q, m, ksub, code_bytes, budget, n_rows, s);
-    case 16: return launch<16>(lut, codes, blk, out, n_q, m, ksub, code_bytes, budget, n_rows, s);
-    case 32: return launch<32>(lut, codes, blk, out, n_q, m, ksub, code_bytes, budget, n_rows, s);
+  switch (vec) {
+    case 16: return dispatch<16>(bq, ksub, lut, codes, blk, out, n_q, m, budget, n_rows, s);
+    case 4: return dispatch<4>(bq, ksub, lut, codes, blk, out, n_q, m, budget, n_rows, s);
+    case 1: return dispatch<1>(bq, ksub, lut, codes, blk, out, n_q, m, budget, n_rows, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

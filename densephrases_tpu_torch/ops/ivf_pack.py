@@ -45,12 +45,12 @@ TILE = RB * TPB  # rows per tile
 
 IVF_PACK_SCORE = CudaKernel(
     "ivf_pack_score.cu", "dph_ivf_pack_score",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 PQ_PACK_SCORE = CudaKernel(
     "pq_pack_score.cu", "dph_pq_pack_score",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
-_SMEM_BUDGET = 220 * 1024  # kernel D's shared memory, under the 227 KB cap
+SMEM_MAX = 232448  # a block's shared-memory ceiling on the H100 (227 KB)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -112,6 +112,64 @@ def _out_buffer(out, b: int, blk):
     return out
 
 
+def check_aligned(ptr: int, nbytes: int, name: str):
+    """Raise unless the address ``ptr`` is a multiple of ``nbytes``: the
+    width of the kernel's vector loads from that tensor."""
+    if ptr % nbytes:
+        raise ValueError(f"{name} must be {nbytes}-byte aligned for the "
+                         f"kernel's loads (address % {nbytes} = "
+                         f"{ptr % nbytes})")
+
+
+def load_width(row_bytes: int, ptr: int, widths) -> int:
+    """The widest code load (bytes) that divides the row width and the
+    codes' address, so every row's loads are aligned; 0 if none does."""
+    return next((w for w in widths if row_bytes % w == 0 and ptr % w == 0),
+                0)
+
+
+def scan_plan(b: int, code_bytes: int, *, sq4: bool):
+    """Kernel C's launch (``csrc/ivf_pack_score.cu``): (nt, bq, stride,
+    smem). A block scores bq = 8·nt queries (nt 2, 4, 8 or 16 n-tiles):
+    the fewest that hold the batch, at most 128, and no more than its
+    shared memory holds. It keeps them as [segment 0 | segment 1 (SQ4)],
+    each the code row's width rounded up to 32 dims, padded so the row
+    stride in bytes is 64 past a multiple of 128."""
+    seg_w = _round_up(code_bytes, 32)
+    width = (2 if sq4 else 1) * seg_w
+    stride = width + (32 if width % 64 == 0 else 0)
+    per_q = 2 * stride
+    nt = 2
+    while nt < 16 and 8 * nt < b and 16 * nt * per_q <= SMEM_MAX:
+        nt *= 2
+    if 8 * nt * per_q > SMEM_MAX:
+        raise ValueError(f"16 query rows of {code_bytes}-byte codes do not "
+                         f"fit in shared memory")
+    return nt, 8 * nt, stride, 8 * nt * per_q
+
+
+def pq_plan(b: int, m: int, ksub: int):
+    """Kernel D's launch (``csrc/pq_pack_score.cu``): (bq, smem), the
+    queries a block keeps LUTs for. 8-bit: a power of two ≤ 8 whose
+    [M][256][bq] LUT fits, no larger than the batch needs; 4-bit: 16 or
+    32, each query's [M][16] LUT row padded by 8 bf16."""
+    if ksub == 256:
+        per_q = m * 256 * 2
+        if per_q > SMEM_MAX:
+            raise ValueError(f"one query's LUT ({per_q} bytes) does not fit "
+                             f"in shared memory")
+        bq = 1
+        while bq < 8 and bq < b and 2 * bq * per_q <= SMEM_MAX:
+            bq *= 2
+        return bq, bq * per_q
+    per_q = (m * 16 + 8) * 2
+    bq = 32 if b > 16 and 32 * per_q <= SMEM_MAX else 16
+    if bq * per_q > SMEM_MAX:
+        raise ValueError(f"16 queries' LUTs ({16 * per_q} bytes) do not fit "
+                         f"in shared memory")
+    return bq, bq * per_q
+
+
 # --------------------------------------------------------------- kernel C
 def pack_score_plain(q_bf, codes, blk, *, sq4: bool):
     """q_bf [B, D] bf16, codes [N_pad, Dc] int8 (SQ4: Dc = D/2 packed
@@ -153,15 +211,17 @@ def pack_score(q_bf, codes, blk, *, sq4: bool, impl: str = "auto",
     if not (q_bf.is_contiguous() and codes.is_contiguous()
             and blk.is_contiguous()):
         raise ValueError("q, codes and blk must be contiguous")
+    check_aligned(q_bf.data_ptr(), 8, "q")
+    check_aligned(codes.data_ptr(), 4, "codes")
+    vec = load_width(codes.shape[1], codes.data_ptr(), (8, 4))
+    nt = scan_plan(b, codes.shape[1], sq4=sq4)[0]
     out = _out_buffer(out, b, blk)
-    budget = blk.numel()
-    bq = 32 if b > 16 else 16 if b > 8 else 8 if b > 4 else 4
     with torch.cuda.device(q_bf.device):
         stream = torch.cuda.current_stream(q_bf.device).cuda_stream
         IVF_PACK_SCORE.launch(q_bf.data_ptr(), codes.data_ptr(),
                               blk.data_ptr(), out.data_ptr(), b, d,
-                              codes.shape[1], int(sq4), budget,
-                              codes.shape[0], bq, stream)
+                              codes.shape[1], int(sq4), blk.numel(),
+                              codes.shape[0], nt, vec, stream)
     return out
 
 
@@ -183,20 +243,6 @@ def pq_pack_score_plain(lut_bf, codes, blk, *, row_chunk: int = 4096):
         idx = c.T[None].expand(b, m, c.shape[0])
         out[:, i0:i0 + c.shape[0]] = torch.gather(lut, 2, idx).sum(1)
     return out
-
-
-def _pq_group(b: int, m: int, ksub: int, code_bytes: int) -> int:
-    """Queries per block for kernel D: a power of two ≤ 32 whose LUTs and
-    the code tile fit the shared-memory budget, no larger than needed."""
-    per_q = m * ksub * 2
-    fit = (_SMEM_BUDGET - code_bytes * TILE) // per_q
-    if fit < 1:
-        raise ValueError(f"one query's LUT ({per_q} bytes) does not fit in "
-                         f"shared memory")
-    bq = 1
-    while bq * 2 <= min(fit, 32) and bq < b:
-        bq *= 2
-    return bq
 
 
 def pq_pack_score(lut_bf, codes, blk, *, impl: str = "auto", out=None):
@@ -222,17 +268,16 @@ def pq_pack_score(lut_bf, codes, blk, *, impl: str = "auto", out=None):
     if not (lut_bf.is_contiguous() and codes.is_contiguous()
             and blk.is_contiguous()):
         raise ValueError("lut, codes and blk must be contiguous")
-    if lut_bf.data_ptr() % 16:
-        raise ValueError("lut must be 16-byte aligned")
+    check_aligned(lut_bf.data_ptr(), 16, "lut")
+    vec = load_width(codes.shape[1], codes.data_ptr(), (16, 4, 1))
+    bq = pq_plan(b, m, ksub)[0]
     out = _out_buffer(out, b, blk)
-    budget = blk.numel()
-    bq = _pq_group(b, m, ksub, codes.shape[1])
     with torch.cuda.device(lut_bf.device):
         stream = torch.cuda.current_stream(lut_bf.device).cuda_stream
         PQ_PACK_SCORE.launch(lut_bf.data_ptr(), codes.data_ptr(),
                              blk.data_ptr(), out.data_ptr(), b, m, ksub,
-                             codes.shape[1], budget, codes.shape[0], bq,
-                             stream)
+                             codes.shape[1], blk.numel(), codes.shape[0], bq,
+                             vec, stream)
     return out
 
 
