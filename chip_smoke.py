@@ -37,12 +37,21 @@ written kernel on that path against its plain PyTorch version:
                  synthetic SQuAD file from phase 3's corpus, every loss part
                  and the teacher; dev eval and filter sweep; the saved encoder
                  served; one step through the kernels vs the plain attention
+  7. offline     the three drivers on phase 3's corpus (four SQuAD files)
+                 and encoder: ``generate_phrase_vecs`` (codes against phase
+                 3's store), ``build_phrase_index`` (SQ8 and OPQ96, 128
+                 clusters), ``eval_phrase_retrieval`` over each on a
+                 synthetic QA file; the OPQ96 index served with the device
+                 refine, in decode mode and with the host refine, and the
+                 int4 flat index beside the int8 one: ms per batch of 64,
+                 the device bytes each holds, host vs device refine ids
 
 Kernel A's launch counter is zeroed right before phase 3 and read after
 phase 4's main-path work; kernels C and D's are zeroed right before phase 5
 and read after it; kernels A and B's are zeroed again right before phase 6's
-``train_rc.main`` and read right after it, and must equal the counts the
-path implies. A kernel of a path that never launched fails the run.
+``train_rc.main`` and read right after it, and A, C and D's right before
+phase 7 and read at its end; phases 6 and 7 must equal the counts their
+paths imply. A kernel of a path that never launched fails the run.
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when there is no CUDA device. The second-last
 lines are a JSON object of per-kernel results and the card's
@@ -147,6 +156,14 @@ IVF_CLUSTERS, SERVE_NPROBE = 128, 16
 # and differ only in summation order, so a different top-1 span must be a
 # near-tie within fp32 rounding of the span score
 FULL_PROBE_RTOL = 1e-4
+# phase 7: phase 3's corpus as this many SQuAD-format files, and a QA file
+# of this many questions whose answers are corpus phrases, evaluated in
+# batches of this many
+OFFLINE_FILES, OFFLINE_QUESTIONS, OFFLINE_EVAL_BATCH = 4, 128, 64
+# decode mode ranks by the PQ codes alone (no int8 re-rank), so its top-1
+# span may differ from the device refine's; this floor only catches a
+# broken decode (random phrase vectors, many near-ties)
+DECODE_TOP1_FLOOR = 0.1
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense rates at
 # 700 W): a kernel's bound is the larger of the bytes it must move over the
 # memory rate and its operations over the peak rate for their type (bf16
@@ -931,6 +948,214 @@ def phase_train(tmp, params, config, tok, docs, mips, rng):
     return counts
 
 
+def synthetic_qa(rng, docs, n):
+    """Open-domain QA rows whose answers are corpus phrases: a 1-3 word span
+    of a paragraph, asked with 4-9 words drawn from that paragraph."""
+    rows = []
+    for i in range(n):
+        doc = docs[int(rng.integers(0, len(docs)))]
+        words = doc["paragraphs"][int(rng.integers(0, len(doc["paragraphs"])))] \
+            .split(" ")[:-1]
+        s = int(rng.integers(0, len(words) - 3))
+        rows.append({"id": f"q{i}",
+                     "question": " ".join(rng.choice(words, int(rng.integers(4, 10)))),
+                     "answers": [" ".join(words[s:s + int(rng.integers(1, 4))])]})
+    return {"data": rows}
+
+
+def device_bytes(build):
+    """(result of build(), device bytes it left allocated)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = build()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - before
+
+
+def refine_ids_agree(store, queries, host_ids, dev_ids):
+    """(share of equal ids, max over differing positions of |Δ exact
+    score| / bound). The device refine scores bf16(q) · code / scale and
+    the host refine fp32 q · code / scale (the offset term is the same for
+    every row of a query), so two rows may trade places when their exact
+    scores lie within the sum of their bf16 bounds, 2^-8 Σ|q_d code_d| /
+    scale each (plus fp32 rounding); a ratio above 1 is a disagreement."""
+    worst = 0.0
+    for b in range(queries.shape[0]):
+        for j in np.nonzero(host_ids[b] != dev_ids[b])[0]:
+            codes = np.asarray(store.vecs[[host_ids[b, j], dev_ids[b, j]]],
+                               np.float64)
+            q = queries[b].astype(np.float64)
+            exact = codes @ q / store.scale
+            tol = ((2.0 ** -8) * (np.abs(codes) @ np.abs(q)).sum()
+                   / store.scale + 1e-5 * np.abs(exact).max())
+            worst = max(worst, abs(exact[0] - exact[1]) / tol)
+    return float((host_ids == dev_ids).mean()), worst
+
+
+def phase_offline(tmp, params, config, tok, docs, store, flat_model, queries,
+                  rng, windows):
+    """Phase 7: the reference's offline workflow through the port's three
+    drivers (dump → build index → evaluate) on phase 3's corpus and
+    encoder, then the OPQ96 index served three ways (device refine, decode
+    mode, host refine) and the int4 flat index beside the int8 one.
+    Returns the launch counts of kernels A, C and D in the phase, which
+    must equal what its path implies."""
+    from densephrases_tpu_torch.cli import (
+        build_phrase_index, eval_phrase_retrieval, generate_phrase_vecs)
+    from densephrases_tpu_torch.cli.common import save_encoder
+    from densephrases_tpu_torch.index.flat import FlatIndex
+    from densephrases_tpu_torch.index.ivf import IVFIndex
+    from densephrases_tpu_torch.index.search import MIPS
+    from densephrases_tpu_torch.models.attention import ATTENTION_FWD
+    from densephrases_tpu_torch.ops.ivf_pack import (
+        IVF_PACK_SCORE, PQ_PACK_SCORE)
+
+    root = os.path.join(tmp, "offline")
+    corpus, enc, dump = (os.path.join(root, d) for d in ("corpus", "enc", "dump"))
+    os.makedirs(corpus)
+    per_file = -(-len(docs) // OFFLINE_FILES)
+    for i in range(OFFLINE_FILES):
+        with open(os.path.join(corpus, f"part{i}.json"), "w") as f:
+            json.dump({"data": [{"title": d["title"], "paragraphs": [
+                {"context": p} for p in d["paragraphs"]]}
+                for d in docs[i * per_file:(i + 1) * per_file]]}, f)
+    qa_path = os.path.join(root, "qa.json")
+    with open(qa_path, "w") as f:
+        json.dump(synthetic_qa(rng, docs, OFFLINE_QUESTIONS), f)
+    save_encoder(enc, params, config, tok)
+    layers = config.num_hidden_layers
+    want = {"A": 0, "C": 0, "D": 0}
+    ATTENTION_FWD.launches = 0
+    IVF_PACK_SCORE.launches = 0
+    PQ_PACK_SCORE.launches = 0
+
+    # dump: phase 3's docs and encoder, phase 3's window length and batch
+    t0 = time.perf_counter()
+    dumped = generate_phrase_vecs.main(
+        ["--load_dir", enc, "--data_dir", corpus, "--predict_file",
+         f"0:{OFFLINE_FILES}", "--dump_dir", dump, "--max_seq_length", "512"],
+        device=DEVICE)
+    dump_s = time.perf_counter() - t0
+    want["A"] += -(-windows // 16) * layers
+    if dumped.vecs.shape != store.vecs.shape or not np.array_equal(
+            dumped.doc_bases, store.doc_bases):
+        raise AssertionError(f"generate_phrase_vecs' store "
+                             f"{dumped.vecs.shape} is not phase 3's "
+                             f"{store.vecs.shape}")
+    step = np.abs(dumped.vecs.astype(np.int16) - store.vecs.astype(np.int16))
+    log("7 offline", driver="generate_phrase_vecs", files=OFFLINE_FILES,
+        docs=dumped.num_docs, vectors=dumped.n_vecs, seconds=round(dump_s, 3),
+        codes_equal_share=float((step == 0).mean()), max_step=int(step.max()))
+    if step.max() > 1:
+        raise AssertionError("generate_phrase_vecs' codes differ from phase "
+                             "3's by more than one int8 step")
+
+    # two IVF builds (no kernel launches)
+    for fq in ("SQ8", "OPQ96"):
+        t0 = time.perf_counter()
+        index = build_phrase_index.main(
+            ["--dump_dir", dump, "--num_clusters", str(IVF_CLUSTERS),
+             "--fine_quant", fq], device=DEVICE)
+        torch.cuda.synchronize()
+        log("7 offline", driver="build_phrase_index", index=fq,
+            nlist=index.nlist, seconds=round(time.perf_counter() - t0, 3))
+        del index
+
+    # the eval over each index: per batch of questions, two query towers
+    # and one union scan (C over SQ8, D over OPQ96 with its device refine)
+    batches = -(-OFFLINE_QUESTIONS // OFFLINE_EVAL_BATCH)
+    for fq, kernel in (("SQ8", "C"), ("OPQ96", "D")):
+        out_dir = os.path.join(root, f"eval_{fq}")
+        t0 = time.perf_counter()
+        metrics = eval_phrase_retrieval.main(
+            ["--load_dir", enc, "--dump_dir", dump, "--index_name",
+             f"start/{IVF_CLUSTERS}_flat_{fq}", "--test_path", qa_path,
+             "--top_k", "10", "--eval_batch_size", str(OFFLINE_EVAL_BATCH),
+             "--save_dir", out_dir, "--max_query_length",
+             str(MAX_QUERY_LENGTH)], device=DEVICE)
+        want["A"] += batches * 2 * layers
+        want[kernel] += batches
+        pred = os.path.join(out_dir, "pred_qa.json_10.json")
+        with open(pred) as f:
+            n_pred = len(json.load(f))
+        log("7 offline", driver="eval_phrase_retrieval", index=fq,
+            questions=OFFLINE_QUESTIONS, seconds=round(time.perf_counter() - t0, 3),
+            **{k: round(metrics[k], 2) for k in ("em_top1", "em_topk",
+                                                 "f1_top1", "f1_topk")})
+        if n_pred != OFFLINE_QUESTIONS or not all(
+                np.isfinite(metrics[k]) for k in ("em_top1", "f1_top1")):
+            raise AssertionError(f"eval over {fq}: {n_pred} predictions")
+
+    # OPQ96 served three ways, and the int4 flat index beside the int8 one:
+    # ms per batch of 64 query vectors (MIPS.search, results on the host)
+    # and the device bytes each index + MIPS holds
+    sample = queries[:QUERY_BATCH]
+    qvec = flat_model.query2vec(sample)
+    want["A"] += 2 * layers
+    stacked = torch.cat(qvec.chunk(2, dim=1), 0)
+    q_host = stacked.cpu().numpy()
+    path = os.path.join(dump, "start", f"{IVF_CLUSTERS}_flat_OPQ96")
+    corpus_bytes = store.n_vecs * store.dim
+    served, ids = {}, {}
+    for mode in ("device", "none", "host"):
+        index, index_bytes = device_bytes(
+            lambda: IVFIndex.load(path, refine_mode=mode, device=DEVICE))
+        mips, mips_bytes = device_bytes(lambda: MIPS(dumped, index=index))
+        ms = host_ms(lambda: mips.search(qvec, top_k=10))
+        ids[mode] = index.search(stacked, top_k=10, as_numpy=True)[1]
+        served[mode] = [r[0] for r in mips.search(qvec, top_k=10)]
+        want["D"] += 6 + 1 + 1  # host_ms's 6 searches, the ids, the spans
+        log("7 offline", index="OPQ96", refine_mode=mode,
+            decode_mode=mips.pq_serve is not None,
+            rescore_corpus_on_device=mips.vecs_dev is not None,
+            index_bytes=index_bytes, mips_bytes=mips_bytes,
+            device_bytes=index_bytes + mips_bytes, batch=QUERY_BATCH,
+            ms_per_batch=ms, init_stages=json.dumps(mips.init_stages))
+        if (mode == "device") != (mips.vecs_dev is not None) or \
+                (mode != "device" and index_bytes + mips_bytes >= corpus_bytes):
+            raise AssertionError(f"refine_mode {mode}: a corpus-sized int8 "
+                                 f"tensor is on the device")
+        del mips, index
+    share, worst = refine_ids_agree(dumped, q_host, ids["host"], ids["device"])
+    spans = lambda rets: [(r["doc_idx"], r["start_idx"], r["end_idx"])
+                          for r in rets]
+    overlap = float(np.mean([a == b for a, b in zip(
+        spans(served["none"]), spans(served["device"]))]))
+    log("7 offline", check="host_refine_vs_device_refine_top10",
+        equal_share=share, worst_gap_over_bf16_bound=worst,
+        decode_top1_equal_to_refine_top1=overlap,
+        decode_top1_floor=DECODE_TOP1_FLOOR)
+    if worst > 1.0:
+        raise AssertionError("host refine and device refine disagree beyond "
+                             "the bf16 rounding of the queries")
+    if overlap < DECODE_TOP1_FLOOR:
+        raise AssertionError(f"decode-mode top-1 spans equal the refine's "
+                             f"for {overlap} of the queries")
+
+    flat_ids = {}
+    for quant in ("int8", "int4"):
+        index, index_bytes = device_bytes(lambda: FlatIndex(
+            dumped.vecs, dumped.offset, dumped.scale, quant=quant,
+            device=DEVICE))
+        mips, mips_bytes = device_bytes(lambda: MIPS(dumped, index=index))
+        ms = host_ms(lambda: mips.search(qvec, top_k=10))
+        flat_ids[quant] = mips.search_dense(qvec, top_k=10)[0].cpu().numpy()
+        log("7 offline", index=f"flat {quant}", index_bytes=index_bytes,
+            mips_bytes=mips_bytes, batch=QUERY_BATCH, ms_per_batch=ms)
+        del mips, index
+    log("7 offline", check="int4_flat_vs_int8_flat",
+        recall_at_10=recall_at(flat_ids["int4"], flat_ids["int8"]))
+    torch.cuda.empty_cache()
+
+    counts = {"A": ATTENTION_FWD.launches, "C": IVF_PACK_SCORE.launches,
+              "D": PQ_PACK_SCORE.launches}
+    log("7 offline", **{f"{k.lower()}_launches": v for k, v in counts.items()},
+        **{f"{k.lower()}_expected": v for k, v in want.items()})
+    if counts != want:
+        raise AssertionError(f"phase 7 launches {counts} != expected {want}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
@@ -1094,6 +1319,10 @@ def main():
     # ---- 6. train (main path: A and B launch counters from zero)
     train_launches = phase_train(tmp, params, config, tok, docs, mips, rng)
 
+    # ---- 7. offline drivers (main path: A, C and D counters from zero)
+    offline_launches = phase_offline(tmp, params, config, tok, docs, store,
+                                     model, queries, rng, stats["windows"])
+
     def timing(row, *rows):
         """The line's numbers for one kernel from its headline row; every
         row's numbers beside them."""
@@ -1113,9 +1342,11 @@ def main():
         "name": "attention_fwd", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "densephrases_tpu/models/attention.py:44",
-        "launches": main_path_launches + train_launches["A"],
+        "launches": (main_path_launches + train_launches["A"]
+                     + offline_launches["A"]),
         "launches_by_path": {"dump_serve": main_path_launches,
-                             "train": train_launches["A"]},
+                             "train": train_launches["A"],
+                             "offline": offline_launches["A"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         **timing(serve_row, *bf16(kernel_rows)),
         "at": "B=64 H=12 L=32 D=64 bf16"}, {
@@ -1129,7 +1360,9 @@ def main():
         "name": "ivf_pack_score", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/ivf_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:94",
-        "launches": ivf_launches["C"],
+        "launches": ivf_launches["C"] + offline_launches["C"],
+        "launches_by_path": {"ivf": ivf_launches["C"],
+                             "offline": offline_launches["C"]},
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["C"]),
         **timing(ivf_rows["C"][0], *ivf_rows["C"]),
         "product_only_ms": [r["product_only_ms"] for r in ivf_rows["C"]],
@@ -1138,7 +1371,9 @@ def main():
         "name": "pq_pack_score", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/pq_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:343",
-        "launches": ivf_launches["D"],
+        "launches": ivf_launches["D"] + offline_launches["D"],
+        "launches_by_path": {"ivf": ivf_launches["D"],
+                             "offline": offline_launches["D"]},
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["D"]),
         **timing(ivf_rows["D"][0], *ivf_rows["D"]),
         "edge_rel_err": ivf_edge_err["D"],

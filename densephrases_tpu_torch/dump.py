@@ -1,10 +1,11 @@
 """Phrase dump: run the phrase tower over a corpus and write the store.
 
 The counterpart of ``densephrases_tpu/dump.py``. A tokenize-ahead thread
-turns docs into 512-token windows while the device encodes the previous
-batch; windows from many docs are batched together, the last batch padded
-with all-zero rows (fully masked, so they reach the attention kernel as rows
-that mask every key); per-doc vectors are reassembled on the host,
+turns docs into 512-token windows (``tokenize_ahead`` docs deep) while the
+device encodes the previous batch; windows from many docs are batched
+together, the last batch padded with all-zero rows (fully masked, so they
+reach the attention kernel as rows that mask every key); per-doc vectors
+are reassembled on the host,
 filtered, quantized to int8 and appended to the store as soon as the window
 stream moves past the doc. The store format is the reference's, byte for
 byte.
@@ -32,8 +33,6 @@ from densephrases_tpu_torch.models.encoder import EncoderParams, embed_phrase
 from densephrases_tpu_torch.ops.quant import float_to_int8
 
 logger = logging.getLogger(__name__)
-
-TOKENIZE_AHEAD = 4  # bound, in docs, on the tokenizer→encoder queue
 
 
 def _phrase_forward(params: EncoderParams, ids, am, tt,
@@ -73,17 +72,26 @@ def dump_phrases(
     batch_size: int = 16,
     offset: float = -2.0,
     scale: float = 20.0,
+    attn_impl: str = "auto",
+    append_title: bool = True,
+    first_passage: bool = False,
+    tokenize_ahead: int = 4,
     _stats: Optional[dict] = None,
 ) -> PhraseStore:
     """docs: iterable of {'doc_id': int, 'title': str, 'paragraphs': [str]}.
-    The phrase tower runs on ``params``' device.
+    The phrase tower runs on ``params``' device, its attention by
+    ``attn_impl`` (``models/attention.py``).
 
+    append_title: prefix each window with the doc's title (``data/
+    features.py``). first_passage: index only each doc's first paragraph
+    (ref: build_phrase_index.py:204-210). tokenize_ahead: bound, in docs, on
+    the tokenizer→encoder queue.
     Resume: docs already in the store are skipped.
     _stats: optional dict; records peak buffered features/open docs and the
     number of windows encoded."""
     writer = StoreWriter(store_path, config.hidden_size, offset, scale)
 
-    q: "queue.Queue" = queue.Queue(maxsize=TOKENIZE_AHEAD)
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, tokenize_ahead))
 
     def produce():
         try:
@@ -91,9 +99,11 @@ def dump_phrases(
                 did = int(doc["doc_id"])
                 if writer.has_doc(did):
                     continue
+                paragraphs = (doc["paragraphs"][:1] if first_passage
+                              else doc["paragraphs"])
                 feats, doc_ctx = convert_context_to_features(
-                    did, doc.get("title", ""), doc["paragraphs"], tokenizer,
-                    max_seq_length=max_seq_length)
+                    did, doc.get("title", ""), paragraphs, tokenizer,
+                    max_seq_length=max_seq_length, append_title=append_title)
                 if feats:
                     q.put((did, doc_ctx, feats))
             q.put(None)
@@ -154,7 +164,7 @@ def dump_phrases(
             ids = np.concatenate([ids, np.zeros((extra,) + ids.shape[1:], ids.dtype)])
             am = np.concatenate([am, np.zeros((extra,) + am.shape[1:], am.dtype)])
             tt = np.concatenate([tt, np.zeros((extra,) + tt.shape[1:], tt.dtype)])
-        s, f_s, f_e = _phrase_forward(params, ids, am, tt)
+        s, f_s, f_e = _phrase_forward(params, ids, am, tt, attn_impl)
         for j, f in enumerate(chunk):
             c0, c1 = f.content_start, f.content_start + f.content_len
             pending.setdefault(f.doc_id, []).append(

@@ -1,55 +1,64 @@
 """Flat (exact) MIPS over the int8 phrase store, on one device.
 
-The counterpart of the single-device int8 path of
+The counterpart of the single-device paths of
 ``densephrases_tpu/index/flat.py``:
 
-- the int8 corpus is uploaded once, zero-padded to a whole number of
-  chunks, and shared with the span rescore stage (``MIPS``);
+- the corpus is uploaded once, zero-padded to a whole number of chunks;
+  an int8 index shares its buffer with the span rescore stage (``MIPS``);
 - scoring dequantizes inside the product:
   ``q · (c/scale + offset) = (q · c)/scale + offset·Σq``. The queries are
   rounded to bf16 for the product, while ``Σq`` comes from the fp32
   queries, as in the reference (flat.py:120-121). The product of bf16
   queries and int8 codes is exact in fp32 and accumulates in fp32, the
   role of the reference's ``preferred_element_type=f32``;
-- a loop over corpus chunks keeps a per-chunk top-k, then one exact merge.
+- a loop over corpus chunks keeps a per-chunk top-k, then one exact merge;
+- ``quant="int4"`` re-quantizes the vectors to the int4 contract
+  (``ops/quant.py``) on the device, slice by slice, and keeps two nibbles a
+  byte, the high nibble holding the first half of the dims: half the
+  device bytes of int8. Its scan unpacks each chunk before the product.
 
 The reference takes ``approx_max_k`` per chunk on the TPU; the port takes an
 exact ``torch.topk``, which equals the reference on CPU (where
-``approx_max_k`` is exact). The mesh-sharded and int4 paths are not ported
-yet.
+``approx_max_k`` is exact). The mesh-sharded path is not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
-from densephrases_tpu_torch.ops.quant import DEFAULT_OFFSET, DEFAULT_SCALE
+from densephrases_tpu_torch.ops.quant import (
+    DEFAULT_OFFSET,
+    DEFAULT_SCALE,
+    INT4_OFFSET,
+    INT4_SCALE,
+    float_to_int4,
+    int8_to_float,
+)
 from densephrases_tpu_torch.utils.device import resolve_device
 
 NEG_INF = -1e30  # pad-row score (flat.py:33)
+SLICE_ROWS = 1 << 20  # rows a host→device copy
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _scan_topk(queries, codes, n_valid: int, offset: float, scale: float,
-               *, top_k: int, chunk: int):
-    """MIPS over a padded corpus: chunked product, exact top-k per chunk,
-    exact merge.
-
-    queries: [B, D] fp32. codes: [R, D] int8 with R % chunk == 0; rows
-    >= n_valid are padding and score NEG_INF.
-    Returns (scores [B, top_k] fp32, ids [B, top_k] int32 row ids)."""
+def _chunked_topk(queries, codes, n_valid: int, offset: float, scale: float,
+                  unpack, *, top_k: int, chunk: int):
+    """The scan both quantizations share: per chunk, ``unpack`` gives the
+    fp32 codes [chunk, D] that the bf16-rounded queries multiply; exact
+    top-k per chunk, exact merge."""
     qsum = queries.sum(-1) * offset  # [B] rank-1 dequant correction
     qbf = queries.to(torch.bfloat16).to(torch.float32)
     col = torch.arange(chunk, device=codes.device, dtype=torch.int32)
     k = min(top_k, chunk)
     vals, ids = [], []
     for i0 in range(0, codes.shape[0], chunk):
-        c = codes[i0:i0 + chunk].to(torch.float32)
-        s = (qbf @ c.T) / scale + qsum[:, None]  # [B, chunk]
+        s = (qbf @ unpack(codes[i0:i0 + chunk]).T) / scale + qsum[:, None]
         s = s.masked_fill(i0 + col >= n_valid, NEG_INF)
         v, pos = torch.topk(s, k, dim=-1)
         vals.append(v)
@@ -59,30 +68,84 @@ def _scan_topk(queries, codes, n_valid: int, offset: float, scale: float,
     return v, torch.gather(all_ids, 1, pos)
 
 
+def _scan_topk(queries, codes, n_valid: int, offset: float, scale: float,
+               *, top_k: int, chunk: int):
+    """MIPS over a padded int8 corpus. queries: [B, D] fp32. codes: [R, D]
+    int8 with R % chunk == 0; rows >= n_valid are padding and score
+    NEG_INF. Returns (scores [B, top_k] fp32, ids [B, top_k] int32)."""
+    return _chunked_topk(queries, codes, n_valid, offset, scale,
+                         lambda c: c.to(torch.float32), top_k=top_k,
+                         chunk=chunk)
+
+
+def _unpack_int4(c):
+    """[rows, D/2] packed bytes → [rows, D] fp32 nibble values, the high
+    nibble first (``ops/quant.float_to_int4``'s layout)."""
+    c = c.to(torch.int32)
+    return torch.cat([c >> 4, c & 0x0F], dim=1).to(torch.float32)
+
+
+def _scan_topk_int4(queries, packed, n_valid: int, offset: float,
+                    scale: float, *, top_k: int, chunk: int):
+    """MIPS over int4-packed codes [R, D/2] with the int4 (offset, scale)
+    contract (ref flat.py:66-99): the same scan as ``_scan_topk``, each
+    chunk unpacked before its product."""
+    return _chunked_topk(queries, packed, n_valid, offset, scale,
+                         _unpack_int4, top_k=top_k, chunk=chunk)
+
+
 class FlatIndex:
-    """Exact MIPS over int8 codes held on one device."""
+    """Exact MIPS over int8 (or re-quantized int4) codes on one device."""
 
     def __init__(self, codes, offset: float = DEFAULT_OFFSET,
-                 scale: float = DEFAULT_SCALE, chunk: int = 4096,
-                 device="cuda"):
+                 scale: float = DEFAULT_SCALE, mesh=None,
+                 shard_axis: str = "shard", chunk: int = 4096,
+                 quant: str = "int8", int4_offset: Optional[float] = None,
+                 int4_scale: Optional[float] = None,
+                 n_total: Optional[int] = None, *, device="cuda"):
         """codes: [N, D] int8 numpy array (a memmap streams slice by slice,
-        never copied whole on the host)."""
+        never copied whole on the host). The parameters are the
+        reference's, in its order: ``mesh`` (with ``shard_axis``) is not
+        ported and raises when set; ``n_total`` serves the reference's
+        preassembled multi-host codes only, so here it must equal N when
+        given. quant: "int8", or "int4" with the int4 contract
+        (``int4_offset``, ``int4_scale``; None: the fixed defaults)."""
+        if mesh is not None:
+            raise NotImplementedError("the mesh-sharded FlatIndex is not ported")
         if codes.dtype != np.int8:
             raise ValueError(f"codes must be int8, got {codes.dtype}")
+        if quant not in ("int8", "int4"):
+            raise ValueError(f"quant must be 'int8' or 'int4', got {quant!r}")
+        if n_total is not None and int(n_total) != codes.shape[0]:
+            raise ValueError(f"n_total {n_total} != {codes.shape[0]} rows")
         self.device = resolve_device(device)
-        self.quant = "int8"
+        self.quant = quant
         self.n_total, self.dim = codes.shape
         self.offset = float(offset)
         self.scale = float(scale)
         self.chunk = min(chunk, max(512, _round_up(self.n_total or 1, 8)))
         self.shard_rows = _round_up(max(self.n_total, 1), self.chunk)
-        self.codes = torch.zeros((self.shard_rows, self.dim), dtype=torch.int8,
-                                 device=self.device)
-        slice_rows = 1 << 20
-        for i0 in range(0, self.n_total, slice_rows):
+        if quant == "int4":
+            if self.dim % 2:
+                raise ValueError("int4 packing needs an even feature dim")
+            self.int4_offset = float(INT4_OFFSET if int4_offset is None
+                                     else int4_offset)
+            self.int4_scale = float(INT4_SCALE if int4_scale is None
+                                    else int4_scale)
+        width = self.dim // 2 if quant == "int4" else self.dim
+        self.codes = torch.zeros(
+            (self.shard_rows, width),
+            dtype=torch.uint8 if quant == "int4" else torch.int8,
+            device=self.device)
+        for i0 in range(0, self.n_total, SLICE_ROWS):
             # a writable copy of one slice: stores load read-only
-            rows = np.array(codes[i0:i0 + slice_rows])
-            self.codes[i0:i0 + rows.shape[0]].copy_(torch.from_numpy(rows))
+            rows = torch.from_numpy(np.array(codes[i0:i0 + SLICE_ROWS]))
+            if quant == "int4":  # re-quantized on the device
+                rows = float_to_int4(
+                    int8_to_float(rows.to(self.device), self.offset,
+                                  self.scale),
+                    self.int4_offset, self.int4_scale)
+            self.codes[i0:i0 + rows.shape[0]].copy_(rows)
 
     def search(self, queries, top_k: int = 10, nprobe: int = 0,
                as_numpy: bool = True):
@@ -93,8 +156,14 @@ class FlatIndex:
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
         k = min(top_k, self.n_total)
-        vals, ids = _scan_topk(queries, self.codes, self.n_total, self.offset,
-                               self.scale, top_k=k, chunk=self.chunk)
+        if self.quant == "int4":
+            vals, ids = _scan_topk_int4(
+                queries, self.codes, self.n_total, self.int4_offset,
+                self.int4_scale, top_k=k, chunk=self.chunk)
+        else:
+            vals, ids = _scan_topk(queries, self.codes, self.n_total,
+                                   self.offset, self.scale, top_k=k,
+                                   chunk=self.chunk)
         if k < top_k:  # pad to the requested k for fixed downstream shapes
             pad = top_k - k
             vals = torch.cat([vals, vals.new_full((vals.shape[0], pad),

@@ -23,6 +23,11 @@ an exact int8 refine of the PQ candidates). Smaller SQ8 batches take the
 per-probe scan ``_probe_score``, which masks each query to its own probed
 lists; the two routes differ by design, as in the reference.
 
+A PQ / OPQ index may keep its int8 refine matrix on the host instead
+(``load(refine_mode="host")``): the scan on the device widens to
+``top_k · refine_factor`` candidates and ``_host_refine`` re-ranks them in
+numpy over a memmap gather, so no D-bytes-a-row matrix reaches the device.
+
 Saves are the reference's format (npy files and ``ivf.pkl``); either
 package loads the other's. The pickle names the reference's classes, so
 loading maps exactly those two names to the port's copies (and imports no
@@ -30,8 +35,7 @@ jax), and saving writes the reference's names without importing them.
 
 Not ported yet: two-level and hierarchical k-means (``num_clusters ≥
 two_level_clusters``), ``build_host_save``, the build's coarse-quantizer
-cache (``coarse_cache``), the host refine tier
-(``refine_mode="host"``), the grouped XLA fallback scans and legacy
+cache (``coarse_cache``), the grouped XLA fallback scans and legacy
 memmap saves whose codes are not a multiple of 32 rows.
 """
 
@@ -350,9 +354,12 @@ class IVFIndex:
                  offset: float = DEFAULT_OFFSET, scale: float = DEFAULT_SCALE,
                  n_total: int = 0, refine_codes=None,
                  int4_offset=INT4_OFFSET, int4_scale=INT4_SCALE,
-                 device="cuda"):
+                 refine_host=None, *, device="cuda"):
         """Host (numpy) arrays, uploaded to ``device``. codes: [N_pad, C]
-        sorted by list, int8 (SQ8, SQ4 packed) or uint8 (PQ)."""
+        sorted by list, int8 (SQ8, SQ4 packed) or uint8 (PQ).
+        refine_host: the original-order int8 matrix [N, D] as a host array
+        (a memmap), for the host refine tier of a PQ index that has no
+        ``refine_codes``; it is never uploaded."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sq4 = cfg.fine_quant == "SQ4"
@@ -398,6 +405,7 @@ class IVFIndex:
         self.refine_codes = (None if refine_codes is None
                              else _upload(refine_codes, torch.int8,
                                           self.device))
+        self.refine_host = refine_host
         # __dict__.get, not getattr: a legacy pickled cfg lacks the instance
         # attribute and must not inherit the class default (True)
         self.pq_residual = (pq is not None
@@ -424,14 +432,15 @@ class IVFIndex:
     @staticmethod
     def build(codes_int8: np.ndarray, cfg: IVFConfig,
               offset: float = DEFAULT_OFFSET, scale: float = DEFAULT_SCALE,
-              verbose: bool = False, device="cuda",
-              stage_s: Optional[dict] = None) -> "IVFIndex":
-        """codes_int8: the store's int8 vectors [N, D]. stage_s, when
-        given, receives the wall seconds of each stage (sample, kmeans,
-        assign, balance, fine)."""
+              verbose: bool = False, coarse_cache: Optional[str] = None, *,
+              device="cuda", stage_s: Optional[dict] = None) -> "IVFIndex":
+        """codes_int8: the store's int8 vectors [N, D]. coarse_cache, the
+        reference's cache of the trained coarse quantizer, is not ported
+        and raises when set. stage_s, when given, receives the wall seconds
+        of each stage (sample, kmeans, assign, balance, fine)."""
         device = resolve_device(device)
         centroids, assign, sample_cache = IVFIndex.build_coarse(
-            codes_int8, cfg, offset=offset, scale=scale, verbose=verbose,
+            codes_int8, cfg, offset, scale, verbose, coarse_cache,
             stage_s=stage_s, device=device)
         t0 = time.perf_counter()
         index = IVFIndex._finish_build(
@@ -445,10 +454,16 @@ class IVFIndex:
     def build_coarse(codes_int8: np.ndarray, cfg: IVFConfig,
                      offset: float = DEFAULT_OFFSET,
                      scale: float = DEFAULT_SCALE, verbose: bool = False,
-                     stage_s: Optional[dict] = None, *, device):
+                     coarse_cache: Optional[str] = None, *,
+                     stage_s: Optional[dict] = None, device):
         """Coarse quantizer: train, assign the corpus, balance. Returns
         (centroids, assign, sample_cache), sample_cache being the training
-        sample tuple of ``_train_sample``."""
+        sample tuple of ``_train_sample``. coarse_cache raises when set
+        (not ported)."""
+        if coarse_cache is not None:
+            raise NotImplementedError(
+                "coarse_cache, the build's coarse-quantizer cache, is not "
+                "ported")
         def mark(key, t0):
             if stage_s is not None:
                 stage_s[key] = round(time.perf_counter() - t0, 3)
@@ -627,6 +642,24 @@ class IVFIndex:
                      as_numpy: bool = True):
         """The batch's union scan over exact-length list reads. Returns
         (scores [B, K], gids [B, K] int32), numpy if as_numpy."""
+        if (self.pq_books is None or self.refine_codes is not None
+                or self.refine_host is None):
+            return self._union_scan(queries, top_k, nprobe, as_numpy)
+        # host refine tier: a widened scan on the device, then the exact
+        # int8 re-rank in numpy (ref ivf.py:1389-1406)
+        wide_k = min(top_k * max(self.cfg.refine_factor, 1),
+                     max(self.n_total, 1))
+        vals, ids = self._union_scan(queries, wide_k, nprobe, as_numpy=True)
+        q_np = torch.as_tensor(queries, dtype=torch.float32).cpu().numpy()
+        vals, ids = self._host_refine(q_np, vals, ids, top_k)
+        if not as_numpy:
+            return (torch.as_tensor(vals, device=self.device),
+                    torch.as_tensor(ids, device=self.device))
+        return vals, ids
+
+    def _union_scan(self, queries, top_k: int, nprobe: int, as_numpy: bool):
+        """The union scan on the device (kernel C or D, and the device
+        refine of a PQ index that has one)."""
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         nprobe = min(nprobe, self.nlist)
         budget = self._pack_budget(int(q.shape[0]), nprobe)
@@ -666,6 +699,28 @@ class IVFIndex:
             self.offset, self.scale, top_k=k,
             nprobe=min(nprobe, self.nlist), cap=self.cap)
         return self._finish(vals, ids, top_k, as_numpy)
+
+    def _host_refine(self, q: np.ndarray, vals: np.ndarray,
+                     gids: np.ndarray, top_k: int):
+        """Exact int8 re-rank of PQ candidates against the host-memmapped
+        original-order matrix. Host code, as in the reference
+        (ivf.py:1544-1564)."""
+        rh = self.refine_host
+        n = rh.shape[0]
+        g = np.clip(np.asarray(gids, np.int64), 0, n - 1)
+        rows = np.asarray(rh[g.reshape(-1)], np.float32).reshape(
+            g.shape + (rh.shape[1],))
+        qsum = q.sum(-1) * self.offset
+        s = (np.einsum("bkd,bd->bk", rows, q, optimize=True) / self.scale
+             + qsum[:, None])
+        s = np.where(np.asarray(vals) > NEG_INF / 2, s, NEG_INF)
+        k = min(top_k, s.shape[1])
+        sel = np.argpartition(-s, k - 1, axis=1)[:, :k]
+        sv = np.take_along_axis(s, sel, axis=1)
+        order = np.argsort(-sv, axis=1)
+        sel = np.take_along_axis(sel, order, axis=1)
+        return (np.take_along_axis(s, sel, axis=1),
+                np.take_along_axis(np.asarray(gids), sel, axis=1))
 
     @staticmethod
     def _finish(vals, ids, top_k: int, as_numpy: bool):
@@ -713,22 +768,24 @@ class IVFIndex:
 
     @staticmethod
     def load(path: str, drop_refine: bool = False,
-             refine_mode: str = "device", device="cuda") -> "IVFIndex":
-        """Load a save directory (either package's). refine_mode "device"
-        uploads the int8 refine matrix; "none" (or drop_refine) drops it.
-        The reference's host refine tier ("host") is not ported."""
+             refine_mode: str = "device", *,
+             device="cuda") -> "IVFIndex":
+        """Load a save directory (either package's). refine_mode:
+        "device" uploads the int8 refine matrix; "none" (or drop_refine)
+        drops it, and ``MIPS`` then serves a PQ index in decode mode;
+        "host" keeps it a host memmap for the host refine tier."""
         if drop_refine:
             refine_mode = "none"
-        if refine_mode not in ("device", "none"):
-            raise NotImplementedError(
-                f"refine_mode={refine_mode!r}: the host refine tier is not "
-                f"ported")
+        if refine_mode not in ("device", "none", "host"):
+            raise ValueError(f"unknown refine_mode {refine_mode!r}")
         with open(os.path.join(path, "ivf.pkl"), "rb") as f:
             extra = _RefUnpickler(f).load()
         refine_path = os.path.join(path, "refine_codes.npy")
+        have = os.path.exists(refine_path)
         refine = (np.load(refine_path, mmap_mode="r")
-                  if refine_mode == "device" and os.path.exists(refine_path)
-                  else None)
+                  if have and refine_mode == "device" else None)
+        refine_host = (np.load(refine_path, mmap_mode="r")
+                       if have and refine_mode == "host" else None)
         return IVFIndex(
             extra["cfg"],
             np.load(os.path.join(path, "centroids.npy")),
@@ -739,4 +796,5 @@ class IVFIndex:
             offset=extra["offset"], scale=extra["scale"],
             n_total=extra["n_total"], refine_codes=refine,
             int4_offset=extra.get("int4_offset", INT4_OFFSET),
-            int4_scale=extra.get("int4_scale", INT4_SCALE), device=device)
+            int4_scale=extra.get("int4_scale", INT4_SCALE),
+            refine_host=refine_host, device=device)

@@ -15,20 +15,29 @@ stage 2 — ``search_phrase``: for every start hit, score candidate ends within
 stage 3 — ``_assemble`` (host): char offsets and result dicts; then
   ``aggregate_results`` (opt1–opt4) and the context-window adjustments.
 
-The rescore reads the int8 corpus in its original row order: a flat index
-shares its padded code buffer, a PQ / OPQ IVF index with an int8 refine
-shares its refine matrix (the store's own codes), and an SQ8 / SQ4 IVF
-index (whose codes are sorted by list) gets the store's vectors uploaded.
+The rescore reads the int8 corpus in its original row order: an int8 flat
+index shares its padded code buffer, a PQ / OPQ IVF index with an int8
+refine shares its refine matrix (the store's own codes), and an SQ8 / SQ4
+IVF index (whose codes are sorted by list) or an int4 flat index gets the
+store's vectors uploaded. A PQ / OPQ index without a device refine (loaded
+with ``refine_mode`` "none" or "host") is served in decode mode
+(``pq_serve``): no corpus-sized int8 tensor exists on the device, and the
+rescore decodes each candidate window from the index's codes,
+``c_rot[list] + books[m, code_m]``, in the rotated code space.
 
-Not ported yet: a query rotation (``MIPS.R``), the PQ decode-mode rescore
-(``pq_serve``, a PQ index without refine), the host-tiered rescore,
-``vecs_on_device``, and the tiered / sharded indexes.
+``rotation`` (``MIPS.R``) rotates every query before both stages; vectors
+handed back with ``return_idxs`` are rotated back, so ``q · v`` is the
+serve score. ``vecs_on_device`` keeps those vectors on the device.
+
+Not ported yet: the host-tiered rescore and the tiered / sharded indexes
+(``mesh`` raises).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Optional
+import time
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -37,16 +46,20 @@ from densephrases_tpu_torch.eval.metrics import normalize_answer
 from densephrases_tpu_torch.index.flat import FlatIndex
 from densephrases_tpu_torch.index.ivf import IVFIndex, _upload
 from densephrases_tpu_torch.index.store import PhraseStore
+from densephrases_tpu_torch.ops.pq import unpack_nibbles_dev
 from densephrases_tpu_torch.utils.device import resolve_device
 from densephrases_tpu_torch.utils.profiling import StageTimer
 
 NEG_INF = -1e9
 SCORE_FLOOR = -1e5  # host-side filter for masked/dummy results (ref: index.py:420)
+# the four candidate-vector outputs of _rescore_spans(return_vecs=True)
+VEC_KEYS = ("end_vec_for_start", "start_vec_anchor", "start_vec_for_end",
+            "end_vec_anchor")
 
 
 def _rescore_spans(query_start, query_end, s_gids, e_gids, s_scores, e_scores,
                    vecs, f2o, doc_end_row, doc_base_row, offset: float,
-                   scale: float, *, max_answer_length: int,
+                   scale: float, pq=None, *, max_answer_length: int,
                    return_vecs: bool = False):
     """Constrained span rescoring for both anchor directions, on the device.
 
@@ -54,13 +67,36 @@ def _rescore_spans(query_start, query_end, s_gids, e_gids, s_scores, e_scores,
     start/end hits; s_scores/e_scores: [B, K] their MIPS scores. vecs: the
     padded [R, D] int8 corpus; f2o, doc_end_row, doc_base_row: [N].
     Returns per-direction best partner offsets and joint scores (and the
-    partner vectors when return_vecs)."""
+    partner vectors when return_vecs).
+
+    pq: None, or decode mode's (codes, books, inv_perm, row_list, c_rot)
+    (ref search.py:73-99): vecs is None, the queries are in the rotated
+    code space, and a row decodes as ``c_rot[row_list[s]] + Σ_m
+    books[m, code_m]`` with s = inv_perm[row] its sorted row. The
+    reference takes the book rows by a one-hot product; here they are
+    gathered, the same fp32 values. The centroid term is added whatever
+    the index's ``pq_residual`` says, as the reference does (a fault of
+    the reference for indexes pickled without residual codes; ROADMAP
+    Queue 3)."""
     n = f2o.shape[0]
     L = max_answer_length
     dev = s_gids.device
 
-    def fetch(rows):
-        return vecs[rows].to(torch.float32) / scale + offset
+    if pq is not None:
+        codes, books, inv_perm, row_list, c_rot = pq
+        m = books.shape[0]
+        sub = torch.arange(m, device=dev)
+
+        def fetch(rows):
+            s = inv_perm[rows].long()
+            code = (unpack_nibbles_dev(codes[s], m) if books.shape[1] == 16
+                    else codes[s][..., :m]).long()
+            res = books[sub, code]  # [..., M, dsub]
+            return (c_rot[row_list[s].long()]
+                    + res.reshape(code.shape[:-1] + (-1,)))
+    else:
+        def fetch(rows):
+            return vecs[rows].to(torch.float32) / scale + offset
 
     def gather_window(gids, offsets):
         win = gids.long()[..., None] + offsets  # [B, K, L]
@@ -133,6 +169,12 @@ def _unpack(buf: np.ndarray, layout) -> dict:
     return out
 
 
+def _sync(device: torch.device):
+    """Wait for the device's queued work, so set-up stages time it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 _SENT_RE = re.compile(r"(?<=[.!?])\s+(?=[A-Z\"'(\[])")
 
 
@@ -149,17 +191,32 @@ def _sentencize(text: str):
 
 
 class MIPS:
-    """Phrase search engine over a flat int8 or an IVF index on one device
+    """Phrase search engine over a flat or an IVF index on one device
     (API parity with ref MIPS, index.py:23)."""
 
-    def __init__(self, store: PhraseStore, index=None, device=None):
-        """index: a ``FlatIndex`` or ``IVFIndex`` (None: a flat index over
-        the store). device: where to upload the corpus when no ``index`` is
-        given (None: "cuda"); with an ``index``, None or its device."""
+    def __init__(self, store: PhraseStore, index=None, rotation=None,
+                 mesh=None, shard_axis: str = "shard",
+                 collect_stats: bool = False, preload_meta: bool = True, *,
+                 device=None):
+        """The reference's parameters in its order (ref search.py:240-242).
+        index: a ``FlatIndex`` or ``IVFIndex`` (None: a flat int8 index over
+        the store). rotation: a [D, D] matrix applied to the queries of
+        both stages. mesh (with ``shard_axis``): not ported, raises when
+        set. collect_stats: record the unique docs a query's hits touch
+        (``num_docs_list``). preload_meta: decompress the doc metadata in
+        the background. device: where to upload the corpus when no
+        ``index`` is given (None: "cuda"); with an ``index``, None or its
+        device. ``init_stages`` holds the seconds of each set-up stage."""
+        if mesh is not None:
+            raise NotImplementedError("the mesh-sharded MIPS is not ported")
         self.store = store
+        self.collect_stats = collect_stats
+        stages = {}
+        t = time.perf_counter()
         if index is None:
             index = FlatIndex(store.vecs, store.offset, store.scale,
                               device="cuda" if device is None else device)
+            stages["index_upload_s"] = round(time.perf_counter() - t, 3)
         elif not isinstance(index, (FlatIndex, IVFIndex)):
             raise NotImplementedError(
                 "the port serves a FlatIndex or an IVFIndex")
@@ -167,42 +224,78 @@ class MIPS:
             raise ValueError(f"index is on {index.device}, asked for {device}")
         self.index = index
         self.device = index.device
+        self.R = (None if rotation is None else torch.as_tensor(
+            np.asarray(rotation, np.float32), device=self.device))
+        self.pq_serve = None
 
-        # decompress all doc metadata in the background; per-doc meta()
-        # decompresses on demand until the sweep catches up
-        store.preload_metas(background=True)
+        if preload_meta:
+            # decompress all doc metadata in the background; per-doc meta()
+            # decompresses on demand until the sweep catches up
+            store.preload_metas(background=True)
 
         # per-row serve arrays: f2o from the store's sidecar, doc bounds as
         # a repeat over the doc lengths (no per-doc Python loop)
+        t = time.perf_counter()
         f2o = store.f2o_flat()
+        stages["f2o_s"] = round(time.perf_counter() - t, 3)
+        t = time.perf_counter()
         lens = np.diff(store.doc_bases).astype(np.int64)
         # int32 row ids (ref: search.py:279-281)
         rdt = np.int32 if store.n_vecs < 2**31 else np.int64
         doc_end_row = np.repeat(store.doc_bases[1:].astype(rdt), lens)
         doc_base_row = np.repeat(store.doc_bases[:-1].astype(rdt), lens)
-        self.vecs_dev = self._rescore_corpus(store, index)
+        self.vecs_dev = self._rescore_corpus(store, index, stages)
         self.f2o_dev = torch.tensor(f2o, device=self.device)
         self.doc_end_dev = torch.tensor(doc_end_row, device=self.device)
         self.doc_base_dev = torch.tensor(doc_base_row, device=self.device)
+        _sync(self.device)
+        stages["serve_arrays_s"] = round(time.perf_counter() - t, 3)
+        self.init_stages = stages
+        self.num_docs_list: List[float] = []
         self.timer = StageTimer()
 
-    @staticmethod
-    def _rescore_corpus(store: PhraseStore, index):
+    def _rescore_corpus(self, store: PhraseStore, index, stages: dict):
         """The original-order int8 corpus on the index's device for the
-        rescore (which clips row ids, so pad rows are never candidates)."""
-        if isinstance(index, FlatIndex):
+        rescore (which clips row ids, so pad rows are never candidates),
+        or None in decode mode, which sets ``pq_serve``."""
+        if isinstance(index, FlatIndex) and index.quant == "int8":
             return index.codes  # shared: the padded flat buffer
-        refine = index.refine_codes
-        if (refine is not None and refine.shape[0] >= store.n_vecs
-                and refine.shape[1] == store.dim):
-            return refine  # PQ / OPQ with refine: the store's own codes
-        if index.pq_books is not None:
-            raise NotImplementedError(
-                "a PQ / OPQ IVF index without an int8 refine needs the "
-                "decode-mode rescore (the reference's pq_serve), which is "
-                "not ported")
-        # SQ8 / SQ4: the index's codes are sorted by list
+        if isinstance(index, IVFIndex):
+            refine = index.refine_codes
+            if (refine is not None and refine.shape[0] >= store.n_vecs
+                    and refine.shape[1] == store.dim):
+                return refine  # PQ / OPQ with refine: the store's own codes
+            if index.pq_books is not None:
+                t = time.perf_counter()
+                self.pq_serve = self._decode_arrays(store, index)
+                # the port keeps one unpadded code copy: nothing to compact
+                stages["pq_compacted"] = False
+                _sync(self.device)
+                stages["pq_setup_s"] = round(time.perf_counter() - t, 3)
+                return None
+        # SQ8 / SQ4 (codes sorted by list) or an int4 flat index (whose
+        # nibbles are not the int8 corpus; the reference's MIPS shares them
+        # and fails, ROADMAP Queue 3)
         return _upload(store.vecs, torch.int8, index.device)
+
+    @staticmethod
+    def _decode_arrays(store: PhraseStore, index: IVFIndex) -> dict:
+        """Decode mode's maps, built on the device (ref search.py:318-348):
+        global row → sorted row (a scatter of row_perm), sorted row → list
+        (a searchsorted over the list offsets), and the rotated centroids."""
+        dev, n_real = index.device, index.n_real
+        inv_perm = torch.zeros(store.n_vecs, dtype=torch.int32, device=dev)
+        inv_perm[index.row_perm[:n_real].long()] = torch.arange(
+            n_real, dtype=torch.int32, device=dev)
+        offs = index.list_offsets
+        row_list = (torch.searchsorted(
+            offs, torch.arange(n_real, dtype=offs.dtype, device=dev),
+            right=True) - 1).to(torch.int32)
+        rot = index.rotation
+        c_rot = index.centroids if rot is None else index.centroids @ rot
+        return {"codes": index.codes, "books": index.pq_books,
+                "inv_perm": inv_perm, "row_list": row_list,
+                "c_rot": c_rot.to(torch.float32), "rot": rot}
 
     # ---------------- stage 1 ----------------
     def search_dense(self, query, top_k: int = 10, nprobe: int = 256):
@@ -213,42 +306,94 @@ class MIPS:
         b = query.shape[0]
         qs, qe = query.chunk(2, dim=1)
         stacked = torch.cat([qs, qe], 0)
+        if self.R is not None:
+            stacked = stacked @ self.R  # rotate queries into code space
         with self.timer.stage("mips_device"):
             scores, gids = self.index.search(stacked, top_k, nprobe=nprobe,
                                              as_numpy=False)
         s_scores, e_scores = scores[:b], scores[b:]
         s_gids, e_gids = gids[:b], gids[b:]
+
+        if self.collect_stats:  # unique-docs-per-query stat (ref: :380-386)
+            s_doc, _ = self.store.global_to_doc(s_gids.cpu().numpy())
+            e_doc, _ = self.store.global_to_doc(e_gids.cpu().numpy())
+            num_docs = sum(
+                len(set(sd.tolist()) | set(ed.tolist()))
+                for sd, ed in zip(s_doc, e_doc)) / max(b, 1)
+            self.num_docs_list.append(num_docs)
         return s_gids, e_gids, s_scores, e_scores
 
     # ---------------- stage 2 ----------------
+    def _rescore(self, query, s_gids, e_gids, s_scores, e_scores,
+                 max_answer_length: int, return_idxs: bool):
+        """The device rescore as a dict of device tensors: queries rotated
+        by ``R`` (and, in decode mode, into the index's code space), and
+        returned vectors rotated back (ref search.py:405-476)."""
+        query = torch.as_tensor(query, dtype=torch.float32, device=self.device)
+        qs, qe = query.chunk(2, dim=1)
+        if self.R is not None:
+            qs, qe = qs @ self.R, qe @ self.R
+        pq, out_rot = None, self.R
+        if self.pq_serve is not None:
+            ps = self.pq_serve
+            if ps["rot"] is not None:
+                qs, qe = qs @ ps["rot"], qe @ ps["rot"]
+                out_rot = ps["rot"]
+            pq = (ps["codes"], ps["books"], ps["inv_perm"], ps["row_list"],
+                  ps["c_rot"])
+        res = _rescore_spans(
+            qs, qe, s_gids, e_gids, s_scores, e_scores,
+            self.vecs_dev, self.f2o_dev, self.doc_end_dev, self.doc_base_dev,
+            self.store.offset, self.store.scale, pq,
+            max_answer_length=max_answer_length, return_vecs=return_idxs)
+        if return_idxs and out_rot is not None:
+            # serve scores are (q·R)·c: hand back v = c·Rᵀ, so q·v is the
+            # serve score (ref: search.py:468-476)
+            for key in VEC_KEYS:
+                res[key] = res[key] @ out_rot.T
+        return res
+
     def rescore(self, query, s_gids, e_gids, s_scores, e_scores,
                 max_answer_length: int = 10, return_idxs: bool = False):
         """Device half of stage 2: the packed (not yet copied) rescore bundle
         with the hit ids, as ``_pack`` returns it."""
-        query = torch.as_tensor(query, dtype=torch.float32, device=self.device)
-        qs, qe = query.chunk(2, dim=1)
-        res = _rescore_spans(
-            qs, qe, s_gids, e_gids, s_scores, e_scores,
-            self.vecs_dev, self.f2o_dev, self.doc_end_dev, self.doc_base_dev,
-            self.store.offset, self.store.scale,
-            max_answer_length=max_answer_length, return_vecs=return_idxs)
+        res = self._rescore(query, s_gids, e_gids, s_scores, e_scores,
+                            max_answer_length, return_idxs)
         res["s_gids"], res["e_gids"] = s_gids, e_gids
         return _pack(res)
 
     def search_phrase(self, query, s_gids, e_gids, s_scores, e_scores,
                       max_answer_length: int = 10, return_idxs: bool = False,
-                      return_sent: bool = False):
+                      return_sent: bool = False, vecs_on_device: bool = False):
         """Constrained span rescore + host result assembly
-        (ref: index.py:220-422)."""
+        (ref: index.py:220-422).
+
+        vecs_on_device (implies return_idxs): the candidate vectors stay on
+        the device and are not attached to the result dicts; the return
+        value is ``(results, (start_vecs, end_vecs))``, two [B, 2K, D]
+        device tensors whose columns are the candidates' ``cand_col``."""
+        if vecs_on_device:
+            return_idxs = True
+        dev_vecs = None
         with self.timer.stage("rescore_device"):
-            buf, layout = self.rescore(
-                query, s_gids, e_gids, s_scores, e_scores,
-                max_answer_length=max_answer_length, return_idxs=return_idxs)
+            res = self._rescore(query, s_gids, e_gids, s_scores, e_scores,
+                                max_answer_length, return_idxs)
+            if vecs_on_device:
+                # K start-anchored spans, then K end-anchored spans
+                dev_vecs = (
+                    torch.cat([res.pop("start_vec_anchor"),
+                               res.pop("start_vec_for_end")], dim=1),
+                    torch.cat([res.pop("end_vec_for_start"),
+                               res.pop("end_vec_anchor")], dim=1))
+                return_idxs = False
+            res["s_gids"], res["e_gids"] = s_gids, e_gids
+            buf, layout = _pack(res)
             # ONE device→host copy for everything stage 3 needs
             res = _unpack(buf.cpu().numpy(), layout)
         s_gids, e_gids = res.pop("s_gids"), res.pop("e_gids")
-        return self._assemble(res, s_gids, e_gids, return_idxs=return_idxs,
+        outs = self._assemble(res, s_gids, e_gids, return_idxs=return_idxs,
                               return_sent=return_sent)
+        return (outs, dev_vecs) if dev_vecs is not None else outs
 
     def _assemble(self, res, s_gids, e_gids, return_idxs: bool = False,
                   return_sent: bool = False):
@@ -366,13 +511,15 @@ class MIPS:
     def search(self, query, q_texts=None, nprobe: int = 256, top_k: int = 10,
                aggregate: bool = False, return_idxs: bool = False,
                max_answer_length: int = 10, agg_strat: str = "opt1",
-               return_sent: bool = False):
+               return_sent: bool = False, vecs_on_device: bool = False):
         s_gids, e_gids, s_scores, e_scores = self.search_dense(
             query, top_k=top_k, nprobe=nprobe)
         outs = self.search_phrase(
             query, s_gids, e_gids, s_scores, e_scores,
             max_answer_length=max_answer_length, return_idxs=return_idxs,
-            return_sent=return_sent)
+            return_sent=return_sent, vecs_on_device=vecs_on_device)
+        if vecs_on_device:
+            return outs  # (results, (start_vecs, end_vecs)): search_phrase
         if aggregate:
             q_texts = q_texts if q_texts is not None else [None] * len(outs)
             outs = [

@@ -4,10 +4,10 @@ The counterpart of ``densephrases_tpu/model.py``: ``search`` over retrieval
 units phrase / sentence / paragraph / document with the reference's
 unit→aggregation-strategy map and 2× over-retrieval for the coarser units
 (ref: model.py:76-87), plus ``evaluate``. The query towers run on the
-params' device; the MIPS engine must sit on the same device. The truecaser
-is not ported yet: ``truecase`` keeps its place in both signatures, a
-truecaser passed to ``__init__`` raises, and ``search(truecase=True)`` is a
-no-op without one, as in the reference.
+params' device; the MIPS engine must sit on the same device. With a
+truecaser (``data/truecase.py``), ``search(truecase=True)`` truecases each
+all-lowercase query before encoding it, as the reference does
+(model.py:93-97); without one it is a no-op.
 """
 
 from __future__ import annotations
@@ -46,8 +46,6 @@ class DensePhrases:
         """serve_dtype: None keeps the params' dtype; "bf16" serves from a
         bf16 copy of the weights (the reference's serve_dtype, model.py:54-65;
         the caller's params are not changed)."""
-        if truecase is not None:
-            raise NotImplementedError("the truecaser is not ported")
         if serve_dtype is not None:
             if serve_dtype != "bf16":
                 raise ValueError(f"serve_dtype must be None or 'bf16', got "
@@ -87,6 +85,11 @@ class DensePhrases:
                return_meta: bool = False, max_answer_length: int = 10):
         single = isinstance(query, str)
         queries = [query] if single else list(query)
+        if truecase and self.truecase is not None:
+            queries = [
+                q if q != q.lower() else self.truecase.get_true_case(q)
+                for q in queries
+            ]
 
         if retrieval_unit not in self.UNIT_TO_STRAT:
             raise NotImplementedError(f"unknown retrieval unit {retrieval_unit}")

@@ -130,13 +130,20 @@ def assign_blocks(x: np.ndarray, centroids: np.ndarray,
 
 
 def kmeans(x: np.ndarray, k: int, iters: int = 10, seed: int = 0,
-           chunk: int = 4096, verbose: bool = False, offset: float = 0.0,
-           scale: float = 1.0, *, device) -> Tuple[np.ndarray, np.ndarray]:
+           chunk: int = 4096, verbose: bool = False, rounded: bool = False,
+           offset: float = 0.0, scale: float = 1.0, *,
+           device) -> Tuple[np.ndarray, np.ndarray]:
     """Train k centroids on host rows x (f32, or raw int8 codes with the
     (offset, scale) contract). Returns (centroids [k, D] f32 in the
     dequantized space, assignments [N] int32). The init and the empty-
     cluster reseeds draw from ``default_rng(seed)`` in the reference's
-    order, so both packages start from the same rows."""
+    order, so both packages start from the same rows.
+
+    rounded: the reference's power-of-two resampling, which spares its
+    compiler a program per data length; not ported, and True raises."""
+    if rounded:
+        raise NotImplementedError(
+            "kmeans(rounded=True), the power-of-two resampling, is not ported")
     n = x.shape[0]
     assert n >= k, f"need at least k={k} points, got {n}"
     quant = x.dtype == np.int8

@@ -179,6 +179,15 @@ def unpack_nibbles(packed: np.ndarray) -> np.ndarray:
     return np.stack([lo, hi], axis=-1).reshape(packed.shape[0], -1)
 
 
+def unpack_nibbles_dev(packed: torch.Tensor, m: int) -> torch.Tensor:
+    """``unpack_nibbles`` on a device tensor: [..., >= M/2] uint8 → [..., M]
+    int32 in subspace order (low nibble first); bytes past M/2 are
+    ignored."""
+    v = packed[..., :m // 2].to(torch.int32)
+    return torch.stack([v & 0x0F, v >> 4], dim=-1).reshape(
+        v.shape[:-1] + (m,))
+
+
 def pq_decode(pq: PQCodebook, codes: np.ndarray) -> np.ndarray:
     """Decode codes → approximate vectors [N, D] (host, offline use)."""
     n, m = codes.shape

@@ -12,7 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from densephrases_tpu_torch.cli import common, train_rc
+from densephrases_tpu_torch.cli import (
+    build_phrase_index,
+    common,
+    eval_phrase_retrieval,
+    generate_phrase_vecs,
+    train_rc,
+)
 from densephrases_tpu_torch.index import ivf, search
 from densephrases_tpu_torch.index.flat import FlatIndex
 from densephrases_tpu_torch.index.ivf import IVFIndex
@@ -31,6 +37,9 @@ ENTRY_POINTS = {
     "load_encoder": common.load_encoder,
     "init_cross_params": cross_encoder.init_cross_params,
     "train_rc.main": train_rc.main,
+    "generate_phrase_vecs.main": generate_phrase_vecs.main,
+    "build_phrase_index.main": build_phrase_index.main,
+    "eval_phrase_retrieval.main": eval_phrase_retrieval.main,
 }
 
 HELPERS = {
@@ -98,3 +107,13 @@ def test_mips_without_index_or_gpu_raises(monkeypatch):
 
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         search.MIPS(Store())
+
+
+@pytest.mark.parametrize("driver", [generate_phrase_vecs, build_phrase_index,
+                                    eval_phrase_retrieval],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_driver_without_a_gpu_raises(monkeypatch, driver):
+    # the device is resolved before any flag or file is read
+    _no_gpu(monkeypatch)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        driver.main(["--dump_dir", "no_such_dump"])

@@ -26,9 +26,13 @@ from densephrases_tpu.index.search import MIPS as JaxMIPS
 from densephrases_tpu.index.store import PhraseStore as JaxPhraseStore
 from densephrases_tpu.models.bert import BertConfig as JaxBertConfig
 from densephrases_tpu.model import DensePhrases as JaxDensePhrases
+from densephrases_tpu.models import encoder as jax_encoder
 from densephrases_tpu.models.encoder import init_encoder_params as jax_init
+from densephrases_tpu.ops import kmeans as jax_kmeans
+from densephrases_tpu.train import cross_encoder as jax_cross
 from densephrases_tpu_torch.data import features as tfeat
 from densephrases_tpu_torch.data.tokenization import SPECIAL_TOKENS, WordPieceTokenizer
+from densephrases_tpu_torch.data.truecase import TrueCaser
 from densephrases_tpu_torch.dump import dump_phrases
 from densephrases_tpu_torch.index.flat import FlatIndex
 from densephrases_tpu_torch.index.ivf import IVFConfig, IVFIndex
@@ -36,9 +40,12 @@ from densephrases_tpu_torch.index.oracle import check_top1
 from densephrases_tpu_torch.index.search import MIPS
 from densephrases_tpu_torch.index.store import PhraseStore
 from densephrases_tpu_torch.model import DensePhrases
+from densephrases_tpu_torch.models import encoder as port_encoder
 from densephrases_tpu_torch.models.bert import BertConfig
 from densephrases_tpu_torch.models.from_jax import encoder_from_jax
+from densephrases_tpu_torch.ops import kmeans as port_kmeans
 from densephrases_tpu_torch.serve.fused import FusedServer
+from densephrases_tpu_torch.train import cross_encoder as port_cross
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = [f"w{i}" for i in range(200)] + ["paris", "river", "école"]
@@ -328,15 +335,22 @@ def test_fused_server_refuses_ivf(ivf_model):
 
 
 def test_pq_index_without_refine_is_refused(setup, ivf_saves):
+    # a PQ index without a refine is refused a corpus copy on the device:
+    # MIPS serves it in decode mode (tests/test_torch_serve_modes.py)
     index = IVFIndex.load(ivf_saves["OPQ8"], drop_refine=True,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="pq_serve"):
-        MIPS(setup["store"], index=index)
+    mips = MIPS(setup["store"], index=index)
+    assert mips.vecs_dev is None and mips.pq_serve is not None
+    assert mips.pq_serve["codes"] is index.codes
 
 
 # ------------------------------------------- public signatures (repairs)
 def _params(fn):
-    return [p for p in inspect.signature(fn).parameters if p != "self"]
+    """The parameters a caller may pass by position (the port's own,
+    ``device`` and ``stage_s``, are keyword-only)."""
+    return [name for name, p in inspect.signature(fn).parameters.items()
+            if name != "self" and p.kind in (p.POSITIONAL_ONLY,
+                                             p.POSITIONAL_OR_KEYWORD)]
 
 
 @pytest.mark.parametrize("port_fn,ref_fn", [
@@ -347,14 +361,53 @@ def _params(fn):
     (IVFIndex.search_union, JaxIVFIndex.search_union),
     (DensePhrases.search, JaxDensePhrases.search),
     (DensePhrases.__init__, JaxDensePhrases.__init__),
+    (MIPS.__init__, JaxMIPS.__init__),
+    (MIPS.search_phrase, JaxMIPS.search_phrase),
+    (FlatIndex.__init__, JaxFlatIndex.__init__),
+    (IVFIndex.__init__, JaxIVFIndex.__init__),
+    (IVFIndex.build, JaxIVFIndex.build),
+    (IVFIndex.build_coarse, JaxIVFIndex.build_coarse),
+    (IVFIndex.load, JaxIVFIndex.load),
+    (port_kmeans.kmeans, jax_kmeans.kmeans),
 ], ids=["MIPS.search", "MIPS.search_dense", "FlatIndex.search",
         "IVFIndex.search", "IVFIndex.search_union", "DensePhrases.search",
-        "DensePhrases.__init__"])
+        "DensePhrases.__init__", "MIPS.__init__", "MIPS.search_phrase",
+        "FlatIndex.__init__", "IVFIndex.__init__", "IVFIndex.build",
+        "IVFIndex.build_coarse", "IVFIndex.load", "kmeans"])
 def test_signatures_follow_reference(port_fn, ref_fn):
     # positional arguments mean the same in both packages: the port's
-    # parameters are the reference's, in order (the port may stop early)
+    # positional parameters are the reference's, in order (the port may
+    # stop early); the port's own parameters come after them, keyword-only
     port, ref = _params(port_fn), _params(ref_fn)
     assert port == ref[:len(port)], (port, ref)
+
+
+# The deliberate exceptions to the rule above. Each takes what the
+# reference's first arguments cannot mean in the port, so a call in the
+# reference's order fails instead of being misread: the init functions put
+# ``config`` first and take a torch.Generator where the reference takes a
+# JAX key first; the embed functions take no ``config`` (the towers carry
+# it).
+DELIBERATE = {
+    "init_encoder_params": (port_encoder.init_encoder_params,
+                            jax_encoder.init_encoder_params),
+    "init_cross_params": (port_cross.init_cross_params,
+                          jax_cross.init_cross_params),
+    "embed_query": (port_encoder.embed_query, jax_encoder.embed_query),
+    "embed_phrase": (port_encoder.embed_phrase, jax_encoder.embed_phrase),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DELIBERATE))
+def test_deliberate_signature_exceptions(name):
+    port_fn, ref_fn = DELIBERATE[name]
+    port, ref = _params(port_fn), _params(ref_fn)
+    if name.startswith("init_"):
+        assert ref[:2] == ["rng", "config"]
+        assert port[:2] == ["config", "generator"]
+    else:
+        assert ref[:2] == ["params", "config"] and "config" not in port
+        assert port[:2] == ["params", "input_ids"]
 
 
 def test_positional_nprobe_and_top_k(setup):
@@ -373,9 +426,16 @@ def test_positional_nprobe_and_top_k(setup):
 
 def test_truecase_keeps_its_place(setup):
     model = setup["model"]
-    with pytest.raises(NotImplementedError, match="truecaser"):
-        DensePhrases(model.params, model.config, model.tokenizer,
-                     model.mips, 16, object())
+    caser = TrueCaser()
+    caser.train(["the River Paris flows .", "a River and Paris ."])
+    # positional: params, config, tokenizer, mips, max_query_length, truecase
+    cased = DensePhrases(model.params, model.config, model.tokenizer,
+                         model.mips, 16, caser)
+    assert cased.truecase is caser
+    seen = []
+    cased.query2vec = lambda qs: (seen.extend(qs), model.query2vec(qs))[1]
     # positional: query, retrieval_unit, top_k, truecase, return_meta
-    answers, rets = model.search("river", "phrase", 2, True, True)
+    answers, rets = cased.search("river paris", "phrase", 2, True, True)
     assert 0 < len(answers) <= 2 and len(rets) == len(answers)
+    cased.search("river paris", "phrase", 2, False)
+    assert seen == ["River Paris", "river paris"]
