@@ -45,13 +45,22 @@ written kernel on that path against its plain PyTorch version:
                  refine, in decode mode and with the host refine, and the
                  int4 flat index beside the int8 one: ms per batch of 64,
                  the device bytes each holds, host vs device refine ids
+  8. scale       the reference-scale IVF build and tiered serving on a
+                 seeded 2^20 x 768 int8 blob corpus in 16,384 lists: the
+                 two-level coarse build into a coarse cache, hierarchical vs
+                 flat assignment, ``build`` and ``build_host_save`` from the
+                 cache (byte-equal saves), the in-HBM scan (kernel C) vs
+                 ``TieredIVF`` at nprobe 16 and 256, ``TieredFlatIndex`` vs
+                 the flat index, and the drivers at their defaults on phase
+                 7's dump, evaluated on the device and the host tier
 
 Kernel A's launch counter is zeroed right before phase 3 and read after
 phase 4's main-path work; kernels C and D's are zeroed right before phase 5
 and read after it; kernels A and B's are zeroed again right before phase 6's
 ``train_rc.main`` and read right after it, and A, C and D's right before
-phase 7 and read at its end; phases 6 and 7 must equal the counts their
-paths imply. A kernel of a path that never launched fails the run.
+phase 7 and read at its end; A and C's right before phase 8's drivers
+(part g) and read after them; phases 6, 7 and 8 must equal the counts
+their paths imply. A kernel of a path that never launched fails the run.
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when there is no CUDA device. The second-last
 lines are a JSON object of per-kernel results and the card's
@@ -62,6 +71,7 @@ Run from the repository root:  python3 chip_smoke.py
 """
 
 import concurrent.futures
+import filecmp
 import json
 import os
 import re
@@ -164,6 +174,29 @@ OFFLINE_FILES, OFFLINE_QUESTIONS, OFFLINE_EVAL_BATCH = 4, 128, 64
 # span may differ from the device refine's; this floor only catches a
 # broken decode (random phrase vectors, many near-ties)
 DECODE_TOP1_FLOOR = 0.1
+# phase 8: a corpus of 2^20 rows at BERT-base width (768, never cut) in
+# 2^14 lists (the reference's full index: ~10^9 rows in 2^20 lists), made
+# of SCALE_BLOBS seeded blob centres (~256 rows and ~4 lists a blob), so
+# that recall means something; SCALE_SAMPLE rows check the hierarchical
+# assignment; SCALE_QUERIES query rows near the blobs at each nprobe
+SCALE_ROWS, SCALE_DIM, SCALE_LISTS = 1 << 20, 768, 16384
+SCALE_BLOBS, SCALE_SAMPLE, SCALE_QUERIES = 4096, 1 << 16, 128
+SCALE_NPROBES = (16, 256)
+# the blobs in int8 code space: centres N(0, 40²), rows ± N(0, 12²),
+# queries = (centre ± N(0, 8²)) / the int8 scale
+BLOB_SPREAD, BLOB_NOISE, QUERY_NOISE = 40.0, 12.0, 8.0
+# the hierarchical assignment's quantization error against the flat
+# argmin's on the same centroids (the reference's own bar, test_ivf.py)
+HIER_ERR_RATIO = 1.02
+# in-HBM (kernel C) vs tiered IVF on one save and one batch: the same
+# exact bf16 x int8 products summed in fp32 in another order (the scores of
+# equal ids); the ids may differ where the in-HBM scan's boundary blocks
+# reach a row of an unprobed neighbouring list, which the tiered scan
+# never reads
+TIERED_ID_AGREE, TIERED_SCORE_RTOL = 0.99, 1e-4
+# the eval driver's device tier vs its host tier: top-1 predictions equal
+# for this share of the questions; a miss must be a near-tie of span scores
+DRIVER_TOP1_AGREE, NEAR_TIE_RTOL = 0.98, 1e-4
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense rates at
 # 700 W): a kernel's bound is the larger of the bytes it must move over the
 # memory rate and its operations over the peak rate for their type (bf16
@@ -1156,6 +1189,314 @@ def phase_offline(tmp, params, config, tok, docs, store, flat_model, queries,
     return counts
 
 
+def scale_corpus(path, gen):
+    """Write the seeded blob corpus [SCALE_ROWS, SCALE_DIM] int8 into an
+    ``.npy`` memmap, made on the card in blocks of 65,536 rows (no corpus-
+    sized float array anywhere). Returns the blob centres [SCALE_BLOBS,
+    SCALE_DIM] fp32 on the card."""
+    centres = (BLOB_SPREAD * torch.randn((SCALE_BLOBS, SCALE_DIM),
+                                         generator=gen, device=DEVICE))
+    mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.int8,
+                                   shape=(SCALE_ROWS, SCALE_DIM))
+    step = 1 << 16
+    for b0 in range(0, SCALE_ROWS, step):
+        blob = torch.randint(0, SCALE_BLOBS, (step,), generator=gen,
+                             device=DEVICE)
+        rows = centres[blob] + BLOB_NOISE * torch.randn(
+            (step, SCALE_DIM), generator=gen, device=DEVICE)
+        mm[b0:b0 + step] = rows.round().clamp(-128, 127).to(torch.int8) \
+            .cpu().numpy()
+    mm.flush()
+    del mm
+    return centres
+
+
+def same_files(a, b):
+    """Whether two files hold the same bytes."""
+    return filecmp.cmp(a, b, shallow=False)
+
+
+def top1_with_scores(model, questions):
+    """(answer, span score) of each question's top prediction, searched in
+    the eval driver's batches (a tiered IVF's results depend on them)."""
+    out = []
+    for b0 in range(0, len(questions), OFFLINE_EVAL_BATCH):
+        _, rets = model.search(questions[b0:b0 + OFFLINE_EVAL_BATCH],
+                               retrieval_unit="phrase", top_k=10,
+                               return_meta=True)
+        out.extend((r[0]["answer"], r[0]["score"]) if r else ("", None)
+                   for r in rets)
+    return out
+
+
+def phase_scale(tmp, config):
+    """Phase 8: the reference-scale IVF build and the tiered serve.
+
+    a. a seeded blob corpus, 2^20 x 768 int8, written as an ``.npy`` memmap;
+    b. ``IVFIndex.build_coarse`` at 16,384 lists: two-level k-means,
+       hierarchical assignment, balancing, into a coarse cache;
+    c. on 65,536 rows, the hierarchical assignment against the flat argmin
+       over the final centroids: agreement, and quantization error within
+       HIER_ERR_RATIO of the flat one's;
+    d. ``IVFIndex.build`` and ``build_host_save`` from that cache (their
+       stage clocks are b's), the two save directories equal byte for byte;
+    e. the in-HBM index (``search_union``, kernel C) against ``TieredIVF``
+       on the host save, 128 query rows near the blobs, top-10, nprobe 16
+       and 256: ids, scores, recall@10 against ``FlatIndex``, device bytes
+       held after load + search, host-clock ms a batch, the tiered profile;
+    f. ``TieredFlatIndex`` with half the corpus on the card against
+       ``FlatIndex``;
+    g. the drivers at their defaults on phase 7's dump: ``build_phrase_
+       index --fine_quant SQ8`` with no ``--num_clusters`` (1,048,576,
+       capped at N/4: two-level), then ``eval_phrase_retrieval`` over it on
+       the device tier and on the host tier. Kernels A and C count from
+       zero before g: A = 2 evals x batches x 2 towers x layers, C =
+       batches (the device tier's union scans; the host tier launches no
+       C). Then, outside the count, the top-1 predictions of the two tiers
+       with their span scores.
+
+    Returns the launch counts of A and C in g."""
+    from densephrases_tpu_torch.cli import (
+        build_phrase_index, eval_phrase_retrieval)
+    from densephrases_tpu_torch.index.flat import FlatIndex
+    from densephrases_tpu_torch.index.ivf import IVFConfig, IVFIndex
+    from densephrases_tpu_torch.index.tiered import TieredFlatIndex, TieredIVF
+    from densephrases_tpu_torch.models.attention import ATTENTION_FWD
+    from densephrases_tpu_torch.ops.ivf_pack import IVF_PACK_SCORE, probe
+    from densephrases_tpu_torch.ops.kmeans import (
+        assign_blocks, assign_corpus_hier, sort_children)
+    from densephrases_tpu_torch.ops.quant import DEFAULT_OFFSET, DEFAULT_SCALE
+
+    root = os.path.join(tmp, "scale")
+    os.makedirs(root)
+    cc, dev_dir, host_dir = (os.path.join(root, d)
+                             for d in ("coarse", "dev", "host"))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    # a. corpus
+    t0 = time.perf_counter()
+    corpus = os.path.join(root, "codes.npy")
+    centres = scale_corpus(corpus, gen)
+    codes = np.load(corpus, mmap_mode="r")
+    log("8 scale", rows=SCALE_ROWS, dim=SCALE_DIM, blobs=SCALE_BLOBS,
+        corpus_bytes=codes.nbytes, seconds=round(time.perf_counter() - t0, 3))
+
+    # b. the two-level coarse build
+    cfg = IVFConfig(num_clusters=SCALE_LISTS, fine_quant="SQ8")
+    stages = {}
+    t0 = time.perf_counter()
+    centroids, assign, _ = IVFIndex.build_coarse(
+        codes, cfg, coarse_cache=cc, stage_s=stages, device=DEVICE)
+    torch.cuda.synchronize()
+    l1 = np.load(os.path.join(cc, "km_l1.npy"))
+    counts = np.bincount(assign, minlength=len(centroids))
+    cap_nlist = int(np.ceil(cfg.nlist_growth_cap * SCALE_LISTS))
+    log("8 scale", build="coarse", seconds=round(time.perf_counter() - t0, 3),
+        k1=len(l1), nlist_requested=SCALE_LISTS, nlist=len(centroids),
+        nlist_cap=cap_nlist, list_mean=round(float(counts.mean()), 2),
+        longest=int(counts.max()),
+        balance_cap=round(cfg.balance_factor * float(counts.mean()), 1),
+        **stages)
+    if not (cfg.two_level_clusters <= len(centroids) <= cap_nlist):
+        raise AssertionError(f"nlist {len(centroids)} outside "
+                             f"[{cfg.two_level_clusters}, {cap_nlist}]")
+    if counts.max() > cfg.max_list_scan:
+        raise AssertionError(f"longest list {counts.max()} would be "
+                             f"truncated at {cfg.max_list_scan}")
+
+    # c. hierarchical vs flat assignment on a sample, the final centroids
+    sample = np.array(codes[:SCALE_SAMPLE])
+    cents, offs, order = sort_children(centroids, l1, device=DEVICE)
+    if not np.array_equal(order, np.arange(len(order))):
+        raise AssertionError("the built centroids are not sorted by parent")
+    hier = assign_corpus_hier(torch.from_numpy(sample).to(DEVICE), l1, cents,
+                              offs, probe=cfg.assign_probe,
+                              offset=DEFAULT_OFFSET, scale=DEFAULT_SCALE)
+    flat = assign_blocks(sample, cents, chunk=2048, offset=DEFAULT_OFFSET,
+                         scale=DEFAULT_SCALE, device=DEVICE)
+    x = torch.from_numpy(sample).to(DEVICE).float() / DEFAULT_SCALE \
+        + DEFAULT_OFFSET
+    c_dev = torch.from_numpy(cents).to(DEVICE)
+
+    def qerr(a):
+        return float(((x - c_dev[torch.from_numpy(a).long().to(DEVICE)]) ** 2)
+                     .sum(1).mean())
+
+    err_h, err_f = qerr(hier), qerr(flat)
+    log("8 scale", check="hier_vs_flat_assign", rows=SCALE_SAMPLE,
+        agreement=float((hier == flat).mean()), qerr_hier=err_h,
+        qerr_flat=err_f, ratio=err_h / err_f, limit=HIER_ERR_RATIO)
+    if err_h > HIER_ERR_RATIO * err_f:
+        raise AssertionError("hierarchical assignment error too far above "
+                             "the flat argmin's")
+    del x, c_dev
+
+    # d. both builds from the cache, and their save directories
+    s_dev, s_host = {}, {}
+    t0 = time.perf_counter()
+    index = IVFIndex.build(codes, cfg, coarse_cache=cc, stage_s=s_dev,
+                           device=DEVICE)
+    index.save(dev_dir)
+    dev_s = time.perf_counter() - t0
+    del index
+    t0 = time.perf_counter()
+    IVFIndex.build_host_save(codes, cfg, host_dir, coarse_cache=cc,
+                             stage_s=s_host, device=DEVICE)
+    host_s = time.perf_counter() - t0
+    names = ("centroids", "row_perm", "list_offsets", "codes")
+    equal = {n: same_files(os.path.join(dev_dir, f"{n}.npy"),
+                           os.path.join(host_dir, f"{n}.npy")) for n in names}
+    log("8 scale", build="from_cache", build_save_s=round(dev_s, 3),
+        host_save_s=round(host_s, 3), fine_s=s_dev.get("fine_s"),
+        files_equal=all(equal.values()))
+    hit = {k: v for k, v in s_dev.items() if k != "fine_s"}
+    if hit != stages or s_host != stages:
+        raise AssertionError(f"coarse cache missed: {s_dev} {s_host} vs "
+                             f"{stages}")
+    if not all(equal.values()):
+        raise AssertionError(f"save directories differ: {equal}")
+
+    # e. in-HBM (kernel C) vs tiered IVF on the host save
+    rng = np.random.default_rng(SEED)
+    pick = torch.from_numpy(rng.integers(0, SCALE_BLOBS, SCALE_QUERIES)) \
+        .to(DEVICE)
+    q = ((centres[pick] + QUERY_NOISE * torch.randn(
+        centres[pick].shape, generator=gen, device=DEVICE))
+        / DEFAULT_SCALE).cpu().numpy()
+    flat_index, flat_bytes = device_bytes(lambda: FlatIndex(codes,
+                                                            device=DEVICE))
+    exact = flat_index.search(q, top_k=10)
+    flat_ms = host_ms(lambda: flat_index.search(q, top_k=10))
+    os.environ["DPH_TIERED_PROFILE"] = "1"
+    served = {}
+    for kind in ("in_hbm", "tiered"):
+        def load_and_search():
+            ix = (IVFIndex.load(host_dir, device=DEVICE) if kind == "in_hbm"
+                  else TieredIVF.load(host_dir, device=DEVICE))
+            search = ix.search_union if kind == "in_hbm" else ix.search
+            return ix, search, search(q, top_k=10, nprobe=SCALE_NPROBES[0])
+        (ix, search, _), nbytes = device_bytes(load_and_search)
+        for nprobe in SCALE_NPROBES:
+            out = search(q, top_k=10, nprobe=nprobe)
+            served[kind, nprobe] = out
+            ms = host_ms(lambda: search(q, top_k=10, nprobe=nprobe))
+            prof = (json.dumps(ix.last_profile) if kind == "tiered"
+                    else None)
+            log("8 scale", index=kind, nprobe=nprobe, batch=SCALE_QUERIES,
+                recall_at_10_vs_flat=recall_at(out[1], exact[1]),
+                device_bytes=nbytes, ms_per_batch=ms, profile=prof)
+        del ix, search
+    del os.environ["DPH_TIERED_PROFILE"]
+    log("8 scale", index="flat", batch=SCALE_QUERIES, device_bytes=flat_bytes,
+        ms_per_batch=flat_ms)
+    tiered = TieredIVF.load(host_dir, device=DEVICE)
+    sorted_pos = np.empty(tiered.n_total, np.int64)
+    sorted_pos[tiered._row_perm[:tiered.n_total]] = np.arange(tiered.n_total)
+    for nprobe in SCALE_NPROBES:
+        (hv, hi), (tv, ti) = served["in_hbm", nprobe], served["tiered", nprobe]
+        hi, ti = np.asarray(hi, np.int64), np.asarray(ti, np.int64)
+        same = hi == ti
+        # the same rows' scores: the same exact products, summed in fp32
+        # in another order
+        rel = float(np.abs(tv - hv)[same].max() / np.abs(hv).max())
+        # an in-HBM hit the tiered scan lacks: is its list outside the
+        # batch's probed union (an edge row of a neighbouring list, which
+        # the in-HBM scan reads with its boundary block)?
+        union = np.unique(probe(torch.from_numpy(q).to(DEVICE),
+                                tiered.centroids, nprobe).cpu().numpy())
+        lacked = [g for b in range(len(hi)) for g in set(hi[b]) - set(ti[b])]
+        lists = np.searchsorted(tiered.list_offsets, sorted_pos[lacked],
+                                side="right") - 1
+        edge = int((~np.isin(lists, union)).sum())
+        log("8 scale", check="in_hbm_vs_tiered_top10", nprobe=nprobe,
+            id_agreement=float(same.mean()), max_rel_score_diff_same_ids=rel,
+            in_hbm_hits_not_in_tiered=len(lacked),
+            of_them_outside_the_union=edge,
+            limits=f"{TIERED_ID_AGREE}/{TIERED_SCORE_RTOL}")
+        if same.mean() < TIERED_ID_AGREE or rel > TIERED_SCORE_RTOL:
+            raise AssertionError("tiered IVF and the in-HBM scan disagree")
+    del tiered
+
+    # f. tiered flat (half the corpus on the card) vs the flat index
+    tflat, tbytes = device_bytes(lambda: TieredFlatIndex(
+        codes, hbm_budget_bytes=codes.nbytes // 2, block_rows=1 << 18,
+        device=DEVICE))
+    got = tflat.search(q, top_k=10)
+    agree = float((got[1] == exact[1]).mean())
+    rel = float(np.abs(got[0] - exact[0]).max() / np.abs(exact[0]).max())
+    log("8 scale", index="tiered_flat", resident_rows=tflat.n_resident,
+        device_bytes=tbytes, ms_per_batch=host_ms(lambda: tflat.search(
+            q, top_k=10)), id_agreement_vs_flat=agree,
+        max_rel_score_diff=rel)
+    if rel > TIERED_SCORE_RTOL or agree < TIERED_ID_AGREE:
+        raise AssertionError("tiered flat index and the flat index disagree")
+    del tflat, flat_index
+    torch.cuda.empty_cache()
+
+    # g. the drivers at their defaults on phase 7's dump
+    off_root = os.path.join(tmp, "offline")
+    enc, dump, qa_path = (os.path.join(off_root, d)
+                          for d in ("enc", "dump", "qa.json"))
+    layers = config.num_hidden_layers
+    batches = -(-OFFLINE_QUESTIONS // OFFLINE_EVAL_BATCH)
+    want = {"A": 2 * batches * 2 * layers, "C": batches}
+    ATTENTION_FWD.launches = 0
+    IVF_PACK_SCORE.launches = 0
+    t0 = time.perf_counter()
+    built = build_phrase_index.main(
+        ["--dump_dir", dump, "--fine_quant", "SQ8"], device=DEVICE)
+    name = "start/1048576_flat_SQ8"  # the default --num_clusters, uncapped
+    log("8 scale", driver="build_phrase_index", index=name, nlist=built.nlist,
+        vectors=built.n_total, seconds=round(time.perf_counter() - t0, 3))
+    if built.nlist < IVFConfig().two_level_clusters:
+        raise AssertionError(f"the default build made {built.nlist} lists")
+    del built
+    preds, argv = {}, {}
+    for tier in ("device", "host"):
+        out_dir = os.path.join(root, f"eval_{tier}")
+        argv[tier] = ["--load_dir", enc, "--dump_dir", dump, "--index_name",
+                      name, "--test_path", qa_path, "--top_k", "10",
+                      "--eval_batch_size", str(OFFLINE_EVAL_BATCH),
+                      "--save_dir", out_dir, "--max_query_length",
+                      str(MAX_QUERY_LENGTH), "--index_tier", tier]
+        t0 = time.perf_counter()
+        metrics = eval_phrase_retrieval.main(argv[tier], device=DEVICE)
+        preds[tier] = [p[0] if p else "" for p in metrics["predictions"]]
+        log("8 scale", driver="eval_phrase_retrieval", index_tier=tier,
+            questions=len(preds[tier]),
+            seconds=round(time.perf_counter() - t0, 3),
+            **{k: round(metrics[k], 2) for k in ("em_top1", "f1_top1")})
+    counts = {"A": ATTENTION_FWD.launches, "C": IVF_PACK_SCORE.launches}
+    log("8 scale", **{f"{k.lower()}_launches": v for k, v in counts.items()},
+        **{f"{k.lower()}_expected": v for k, v in want.items()})
+    if counts != want:
+        raise AssertionError(f"phase 8 launches {counts} != expected {want}")
+
+    # outside the count: the misses, with both tiers' span scores
+    same = [a == b for a, b in zip(preds["device"], preds["host"])]
+    with open(qa_path) as f:
+        questions = [r["question"] for r in json.load(f)["data"]]
+    worst = 0.0
+    if not all(same):
+        scored = {}
+        for tier in ("device", "host"):
+            opts = eval_phrase_retrieval.Options().parse(
+                argv[tier], groups=["model", "index", "retrieval", "data"])
+            scored[tier] = top1_with_scores(
+                eval_phrase_retrieval.load_model(opts, device=DEVICE),
+                questions)
+        for i in np.nonzero(~np.asarray(same))[0]:
+            (_, sd), (_, sh) = scored["device"][i], scored["host"][i]
+            worst = max(worst, abs(sd - sh) / max(1.0, abs(sd)))
+    log("8 scale", check="eval_device_vs_host_top1",
+        agreement=float(np.mean(same)), misses=len(same) - sum(same),
+        worst_miss_rel_score_gap=worst,
+        limits=f"{DRIVER_TOP1_AGREE}/{NEAR_TIE_RTOL}")
+    if np.mean(same) < DRIVER_TOP1_AGREE or worst > NEAR_TIE_RTOL:
+        raise AssertionError("the eval's device and host tiers disagree")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
@@ -1323,6 +1664,9 @@ def main():
     offline_launches = phase_offline(tmp, params, config, tok, docs, store,
                                      model, queries, rng, stats["windows"])
 
+    # ---- 8. scale (g's path: A and C counters from zero)
+    scale_launches = phase_scale(tmp, config)
+
     def timing(row, *rows):
         """The line's numbers for one kernel from its headline row; every
         row's numbers beside them."""
@@ -1343,10 +1687,11 @@ def main():
         "source": "densephrases_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "densephrases_tpu/models/attention.py:44",
         "launches": (main_path_launches + train_launches["A"]
-                     + offline_launches["A"]),
+                     + offline_launches["A"] + scale_launches["A"]),
         "launches_by_path": {"dump_serve": main_path_launches,
                              "train": train_launches["A"],
-                             "offline": offline_launches["A"]},
+                             "offline": offline_launches["A"],
+                             "scale": scale_launches["A"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         **timing(serve_row, *bf16(kernel_rows)),
         "at": "B=64 H=12 L=32 D=64 bf16"}, {
@@ -1360,9 +1705,11 @@ def main():
         "name": "ivf_pack_score", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/ivf_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:94",
-        "launches": ivf_launches["C"] + offline_launches["C"],
+        "launches": (ivf_launches["C"] + offline_launches["C"]
+                     + scale_launches["C"]),
         "launches_by_path": {"ivf": ivf_launches["C"],
-                             "offline": offline_launches["C"]},
+                             "offline": offline_launches["C"],
+                             "scale": scale_launches["C"]},
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["C"]),
         **timing(ivf_rows["C"][0], *ivf_rows["C"]),
         "product_only_ms": [r["product_only_ms"] for r in ivf_rows["C"]],

@@ -6,12 +6,16 @@ beside it as the reference the port is tested against. This package never
 imports jax or ``densephrases_tpu``; the framework-free host modules are
 copies (``data/``, ``eval/``, ``index/store.py``, ``options.py``).
 
-Ported so far, the flat-index and IVF serve paths and RC training:
+Ported so far, the flat-index, IVF and host-tiered serve paths, the
+offline drivers and RC training:
 
   - ``PhraseEncoder``  — BERT phrase/query towers (``models/``), with the
     attention forward and backward as hand-written CUDA kernels (``csrc/``)
-  - ``IVFIndex``       — IVF-SQ8/SQ4/PQ/OPQ build, save, load and search
-    (``index/ivf.py``), its list scans as CUDA kernels (``csrc/``)
+  - ``IVFIndex``       — IVF-SQ8/SQ4/PQ/OPQ build (two-level k-means at
+    reference scale), save, load and search (``index/ivf.py``), its list
+    scans as CUDA kernels (``csrc/``)
+  - ``TieredIVF``, ``TieredFlatIndex`` — serving from host memory for a
+    corpus larger than the card (``index/tiered.py``)
   - ``MIPS``           — flat or IVF MIPS + span rescore (``index/``)
   - ``DensePhrases``   — the user-facing facade (``model.py``)
   - ``dump_phrases``   — the phrase dump into the reference's store format

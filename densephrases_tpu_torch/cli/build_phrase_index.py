@@ -5,8 +5,8 @@ build_phrase_index.py:341-405 run_index) with an explicit device: one IVF
 build on ``device`` from the store under ``--dump_dir``, saved as
 ``start/{num_clusters}_flat_{fine_quant}`` (ref: :19-44) in the shared save
 format. ``--num_clusters`` is capped at a quarter of the store's vectors;
-at 8,192 or more the build needs two-level k-means, which is not ported,
-and raises.
+from 8,192 lists (``IVFConfig.two_level_clusters``) the coarse quantizer
+is two-level k-means with hierarchical assignment.
 
 Usage:
   python -m densephrases_tpu_torch.cli.build_phrase_index \\

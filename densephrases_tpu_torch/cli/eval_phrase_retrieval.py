@@ -6,7 +6,9 @@ with an explicit device: loads the encoder, the store and the index onto
 ``device``, runs EM/F1 @1/@k, writes ``pred_*.json`` (ref: :199-205) and
 appends to ``eval_logger.txt`` (ref: train_rc.py:402-403); ``--eval_psg``
 runs the passage-level eval and writes ``fid_*.json``. ``--index_tier
-host`` (the tiered indexes) is not ported and raises.
+host`` serves from host memory (``index/tiered.py``): the store is
+memory-mapped, an IVF index is a ``TieredIVF`` whose rescore rows come from
+the store, and without one a ``TieredFlatIndex`` streams the store.
 
 Usage:
   python -m densephrases_tpu_torch.cli.eval_phrase_retrieval \\
@@ -30,6 +32,7 @@ from densephrases_tpu_torch.index.flat import FlatIndex
 from densephrases_tpu_torch.index.ivf import IVFIndex
 from densephrases_tpu_torch.index.search import MIPS
 from densephrases_tpu_torch.index.store import PhraseStore
+from densephrases_tpu_torch.index.tiered import TieredFlatIndex, TieredIVF
 from densephrases_tpu_torch.model import DensePhrases
 from densephrases_tpu_torch.options import Options
 from densephrases_tpu_torch.utils.device import resolve_device
@@ -39,15 +42,21 @@ logger = logging.getLogger(__name__)
 
 def load_model(opts: Options, *, device) -> DensePhrases:
     m, ix, r = opts.model, opts.index, opts.retrieval
-    if r.index_tier == "host":
-        raise NotImplementedError(
-            "--index_tier host: tiered serving (TieredIVF, TieredFlatIndex) "
-            "is not ported")
     params, config, tokenizer = load_encoder(m.load_dir, draft=opts.draft,
                                              device=device)
-    store = PhraseStore.load(os.path.join(ix.dump_dir, ix.phrase_dir))
+    host_tier = r.index_tier == "host"
+    store = PhraseStore.load(os.path.join(ix.dump_dir, ix.phrase_dir),
+                             mmap=host_tier)
     index_dir = os.path.join(ix.dump_dir, ix.index_name)
-    if os.path.exists(os.path.join(index_dir, "ivf.pkl")):
+    have_ivf = os.path.exists(os.path.join(index_dir, "ivf.pkl"))
+    if host_tier:
+        if have_ivf:
+            index = TieredIVF.load(index_dir, device=device)
+            index.store_vecs = store.vecs
+        else:
+            index = TieredFlatIndex(store.vecs, store.offset, store.scale,
+                                    device=device)
+    elif have_ivf:
         index = IVFIndex.load(index_dir, device=device)
     else:
         index = FlatIndex(np.asarray(store.vecs), store.offset, store.scale,

@@ -7,7 +7,17 @@ Build, on ``device``:
 - coarse centroids by flat Lloyd k-means (``ops/kmeans.py``), the corpus
   assigned by L2, then oversized lists split (ε-scaled centroid copies and
   one Lloyd refinement a round) and force-partitioned, within
-  ``nlist_growth_cap``;
+  ``nlist_growth_cap``. At ``num_clusters ≥ two_level_clusters`` (the
+  reference's 2^20 lists) the centroids come from two-level k-means, the
+  corpus is assigned hierarchically (on the device while its int8 codes
+  fit ``DPH_ASSIGN_DEVICE_BYTES``, default 9e9, else streamed in blocks),
+  and the split children are re-sorted under their parents each round;
+- ``coarse_cache``, a directory, keeps the trained coarse quantizer
+  (``centroids.npy``, ``assign.npy``, ``stage_s.json``, then
+  ``coarse.done``) and the two-level k-means before its assignment
+  (``km_*.npy``, ``kmeans.done``): plain npy and JSON, so either package
+  builds from the other's cache, and several fine quantizations of one
+  corpus share one coarse phase;
 - fine quantization: SQ8 reuses the store's int8 codes; SQ4 re-quantizes
   them to packed int4 with per-dim trained ranges; PQ / OPQ train
   codebooks (and a rotation) on the residuals ``x − c[assign]`` and encode
@@ -32,15 +42,16 @@ Saves are the reference's format (npy files and ``ivf.pkl``); either
 package loads the other's. The pickle names the reference's classes, so
 loading maps exactly those two names to the port's copies (and imports no
 jax), and saving writes the reference's names without importing them.
-
-Not ported yet: two-level and hierarchical k-means (``num_clusters ≥
-two_level_clusters``), ``build_host_save``, the build's coarse-quantizer
-cache (``coarse_cache``), the grouped XLA fallback scans and legacy
-memmap saves whose codes are not a multiple of 32 rows.
+``build_host_save`` writes an SQ8 save directory for a corpus larger than
+the device, the sorted codes streamed memmap to memmap, for
+``index/tiered.py:TieredIVF``. A legacy save whose code rows are not a
+multiple of 32 is padded on the device as it uploads; the reference's
+grouped XLA fallback scans are not ported.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import pickle
@@ -66,7 +77,12 @@ from densephrases_tpu_torch.ops.kmeans import (
     _bf16,
     accumulate_blocks,
     assign_blocks,
+    assign_blocks_hier,
+    assign_corpus_hier,
+    assign_hier_streamed,
     kmeans,
+    kmeans_two_level,
+    sort_children,
 )
 from densephrases_tpu_torch.ops.opq import train_opq
 from densephrases_tpu_torch.ops.pq import PQCodebook, pack_nibbles, pq_encode, train_pq
@@ -123,8 +139,8 @@ class IVFConfig:
     balance_factor: float = 4.0
     # actual nlist <= nlist_growth_cap * num_clusters (None: unbounded)
     nlist_growth_cap: Optional[float] = 1.1
-    # at num_clusters >= this the reference trains two-level k-means
-    # (not ported yet)
+    # at num_clusters >= this, two-level k-means and hierarchical
+    # assignment train the coarse quantizer
     two_level_clusters: int = 8192
     # parents probed during hierarchical assignment (two-level only)
     assign_probe: int = 8
@@ -188,40 +204,49 @@ def _split_centroid(c: np.ndarray, n_extra: int, eps: float = 1e-2):
 
 
 def _force_partition(centroids: np.ndarray, assign: np.ndarray, cap: float,
-                     budget: Optional[int] = None):
+                     l1_cents: Optional[np.ndarray] = None,
+                     budget: Optional[int] = None, *, device):
     """Deterministic backstop for lists that splitting cannot break: the
     member rows of any list longer than ``cap`` are cut into cap-sized
     parts under duplicated centroids, longest list first, within
     ``budget`` added centroids (a list may be cut only partly when the
-    budget runs out). Must be the last balance step.
-    Returns (centroids, assign)."""
+    budget runs out). Must be the last balance step. With ``l1_cents``
+    (the two-level quantizer) the centroids are then re-sorted under their
+    nearest parent on ``device`` and ``assign`` follows them.
+    Returns (centroids, parent offsets or None, assign)."""
     k = centroids.shape[0]
     counts = np.bincount(assign, minlength=k)
     cap_i = max(int(cap), 1)
     over = np.nonzero(counts > cap_i)[0]
     over = over[np.argsort(-counts[over], kind="stable")]
-    if len(over) == 0 or (budget is not None and budget <= 0):
-        if budget is not None and budget <= 0 and len(over) > 0:
-            logger.info("force_partition: nlist budget exhausted; %d lists "
-                        "remain over cap %d (max %d)", len(over), cap_i,
-                        int(counts[over[0]]))
-        return centroids, assign
-    order = np.argsort(assign, kind="stable")
-    bounds = np.searchsorted(assign[order], np.arange(k + 1))
-    assign = assign.copy()
-    new_cents = [centroids]
-    next_id = k
-    remaining = budget if budget is not None else np.inf
-    for li in over:
-        mem = order[bounds[li]:bounds[li + 1]]
-        for p0 in range(cap_i, len(mem), cap_i):
-            if remaining <= 0:
-                break
-            assign[mem[p0:p0 + cap_i]] = next_id
-            new_cents.append(centroids[li][None, :])
-            next_id += 1
-            remaining -= 1
-    return np.concatenate(new_cents).astype(np.float32), assign
+    if budget is not None and budget <= 0 and len(over) > 0:
+        logger.info("force_partition: nlist budget exhausted; %d lists "
+                    "remain over cap %d (max %d)", len(over), cap_i,
+                    int(counts[over[0]]))
+    elif len(over) > 0:
+        order = np.argsort(assign, kind="stable")
+        bounds = np.searchsorted(assign[order], np.arange(k + 1))
+        assign = assign.copy()
+        new_cents = [centroids]
+        next_id = k
+        remaining = budget if budget is not None else np.inf
+        for li in over:
+            mem = order[bounds[li]:bounds[li + 1]]
+            for p0 in range(cap_i, len(mem), cap_i):
+                if remaining <= 0:
+                    break
+                assign[mem[p0:p0 + cap_i]] = next_id
+                new_cents.append(centroids[li][None, :])
+                next_id += 1
+                remaining -= 1
+        centroids = np.concatenate(new_cents).astype(np.float32)
+    if l1_cents is None:
+        return centroids, None, assign
+    centroids, parent_offs, order_c = sort_children(centroids, l1_cents,
+                                                    device=device)
+    inv = np.empty(len(order_c), np.int64)
+    inv[order_c] = np.arange(len(order_c))
+    return centroids, parent_offs, inv[assign].astype(np.int32)
 
 
 def _eps_split_plan(counts: np.ndarray, oversized: np.ndarray, cap: float,
@@ -280,6 +305,59 @@ def _balance_lists(x: np.ndarray, centroids: np.ndarray, assign: np.ndarray,
     return centroids, assign
 
 
+def _balance_lists_hier(x: np.ndarray, centroids: np.ndarray,
+                        l1_cents: np.ndarray, assign: np.ndarray,
+                        balance_factor: float = 4.0, rounds: int = 3,
+                        seed: int = 0, probe: int = 8, verbose: bool = False,
+                        offset: float = 0.0, scale: float = 1.0,
+                        assign_fn=None, growth_cap: Optional[float] = None,
+                        parent_offs: Optional[np.ndarray] = None, *,
+                        device):
+    """List splitting for the two-level quantizer: ε-scaled copies of the
+    oversized lists' centroids, every child re-sorted under its nearest
+    parent, and the corpus reassigned hierarchically (``assign_fn(l1,
+    centroids, parent offsets)``, else ``assign_blocks_hier`` over x), within
+    growth_cap × the initial count. With ``parent_offs`` given, a round that
+    cannot gain (no oversized list, no fewer than the last round, or no
+    budget) stops before its reassignment. Returns (sorted centroids,
+    l1_cents, parent offsets, assign)."""
+    k0 = centroids.shape[0]
+    cap = balance_factor * max(len(x) / k0, 1.0)
+    budget_total = (None if growth_cap is None
+                    else max(int(np.ceil(growth_cap * k0)) - k0, 0))
+    prev_over = np.inf
+    for _ in range(rounds):
+        k = centroids.shape[0]
+        counts = np.bincount(assign, minlength=k)
+        oversized = np.nonzero(counts > cap)[0]
+        no_gain = len(oversized) == 0 or len(oversized) >= prev_over
+        if no_gain and parent_offs is not None:
+            break
+        prev_over = min(prev_over, len(oversized))
+        budget = None if budget_total is None else budget_total - (k - k0)
+        split_ids, extras = _eps_split_plan(counts, oversized, cap, budget)
+        if len(split_ids) == 0 and parent_offs is not None:
+            break  # growth budget spent; force partition handles the rest
+        new_cents = [centroids]
+        for li, n_extra in zip(split_ids, extras):
+            new_cents.append(_split_centroid(centroids[li], int(n_extra)))
+        centroids = np.concatenate(new_cents, axis=0).astype(np.float32)
+        centroids, parent_offs, _ = sort_children(centroids, l1_cents,
+                                                  device=device)
+        if assign_fn is not None:
+            assign = assign_fn(l1_cents, centroids, parent_offs)
+        else:
+            assign = assign_blocks_hier(x, l1_cents, centroids, parent_offs,
+                                        probe=probe, offset=offset,
+                                        scale=scale, device=device)
+        if verbose:
+            logger.info("hier balance round: k %d→%d, max list %d", k,
+                        centroids.shape[0],
+                        int(np.bincount(assign,
+                                        minlength=centroids.shape[0]).max()))
+    return centroids, l1_cents, parent_offs, assign
+
+
 def _sq4_encode_stream(codes_int8: np.ndarray, offset: float, scale: float,
                        int4_offset=INT4_OFFSET, int4_scale=INT4_SCALE,
                        chunk: int = 1 << 18, *, device) -> np.ndarray:
@@ -305,12 +383,17 @@ def _sq4_encode_stream(codes_int8: np.ndarray, offset: float, scale: float,
     return out.view(np.int8)
 
 
-def _upload(arr, dtype, device):
-    """A host array (a memmap streams slice by slice) → a device tensor."""
-    out = torch.empty(arr.shape, dtype=dtype, device=device)
+def _upload(arr, dtype, device, rows: Optional[int] = None):
+    """A host array (a memmap streams slice by slice) → a device tensor of
+    ``rows`` rows (default: the array's), the rows past the array zero."""
+    n = arr.shape[0]
+    out = torch.empty((n if rows is None else rows,) + tuple(arr.shape[1:]),
+                      dtype=dtype, device=device)
     step = 1 << 20
-    for i0 in range(0, arr.shape[0], step):
-        out[i0:i0 + step].copy_(torch.from_numpy(np.array(arr[i0:i0 + step])))
+    for i0 in range(0, n, step):
+        i1 = min(i0 + step, n)
+        out[i0:i1].copy_(torch.from_numpy(np.array(arr[i0:i1])))
+    out[n:].zero_()
     return out
 
 
@@ -363,18 +446,14 @@ class IVFIndex:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sq4 = cfg.fine_quant == "SQ4"
-        if codes.shape[0] % RB:
-            if isinstance(codes, np.memmap):
-                raise NotImplementedError(
-                    f"legacy unaligned codes ({codes.shape[0]} rows, not a "
-                    f"multiple of {RB}): the reference serves these through "
-                    f"its grouped fallback scan, which is not ported; "
-                    f"rebuild the index")
-            extra = (-codes.shape[0]) % RB
-            codes = np.concatenate(
-                [codes, np.zeros((extra,) + codes.shape[1:], codes.dtype)])
+        # the scans address whole 32-row blocks: a legacy save with another
+        # row count is padded with zero rows on the device as it uploads
+        # (never on the host: a memmap would be read whole into memory)
+        n_rows = _round_up(codes.shape[0], RB)
+        if n_rows != codes.shape[0]:
             row_perm = np.concatenate(
-                [row_perm, np.zeros(extra, np.asarray(row_perm).dtype)])
+                [row_perm, np.zeros(n_rows - codes.shape[0],
+                                    np.asarray(row_perm).dtype)])
         # scalar: the fixed legacy int4 contract; [D] vectors: trained ranges
         self.int4_vector = np.ndim(int4_offset) > 0
         if self.int4_vector:
@@ -393,7 +472,7 @@ class IVFIndex:
         offs_np = np.asarray(list_offsets).astype(np.int64)
         self.list_offsets = torch.as_tensor(offs_np, device=self.device)
         self.codes = _upload(codes, torch.uint8 if codes.dtype == np.uint8
-                             else torch.int8, self.device)
+                             else torch.int8, self.device, rows=n_rows)
         self.rotation = (None if rotation is None else torch.as_tensor(
             np.asarray(rotation, np.float32), device=self.device))
         self.pq = pq
@@ -410,10 +489,12 @@ class IVFIndex:
         # attribute and must not inherit the class default (True)
         self.pq_residual = (pq is not None
                             and bool(cfg.__dict__.get("pq_residual", False)))
-        # host references, so save() writes from host memory
-        self._host_arrays = {
-            k: v for k, v in (("codes", codes), ("refine", refine_codes))
-            if isinstance(v, np.ndarray)}
+        # host references, so save() writes from host memory; padded codes
+        # are written from the device
+        self._host_arrays = ({"refine": refine_codes}
+                             if isinstance(refine_codes, np.ndarray) else {})
+        if isinstance(codes, np.ndarray) and len(codes) == n_rows:
+            self._host_arrays["codes"] = codes
         lens = np.diff(offs_np)
         self.cap = int(_round_up(max(int(lens.max()), 8), 8))
         if self.cap > cfg.max_list_scan:
@@ -434,10 +515,11 @@ class IVFIndex:
               offset: float = DEFAULT_OFFSET, scale: float = DEFAULT_SCALE,
               verbose: bool = False, coarse_cache: Optional[str] = None, *,
               device="cuda", stage_s: Optional[dict] = None) -> "IVFIndex":
-        """codes_int8: the store's int8 vectors [N, D]. coarse_cache, the
-        reference's cache of the trained coarse quantizer, is not ported
-        and raises when set. stage_s, when given, receives the wall seconds
-        of each stage (sample, kmeans, assign, balance, fine)."""
+        """codes_int8: the store's int8 vectors [N, D]. coarse_cache: a
+        directory that keeps the trained coarse quantizer (see the module
+        docstring); a finished one is read instead of training. stage_s,
+        when given, receives the wall seconds of each stage (sample,
+        kmeans, assign, balance: the build's, also on a cache hit; fine)."""
         device = resolve_device(device)
         centroids, assign, sample_cache = IVFIndex.build_coarse(
             codes_int8, cfg, offset, scale, verbose, coarse_cache,
@@ -458,54 +540,194 @@ class IVFIndex:
                      stage_s: Optional[dict] = None, device):
         """Coarse quantizer: train, assign the corpus, balance. Returns
         (centroids, assign, sample_cache), sample_cache being the training
-        sample tuple of ``_train_sample``. coarse_cache raises when set
-        (not ported)."""
-        if coarse_cache is not None:
-            raise NotImplementedError(
-                "coarse_cache, the build's coarse-quantizer cache, is not "
-                "ported")
+        sample tuple of ``_train_sample``, or None when ``coarse_cache``
+        held a finished quantizer (whose stage seconds then fill
+        ``stage_s``)."""
         def mark(key, t0):
             if stage_s is not None:
                 stage_s[key] = round(time.perf_counter() - t0, 3)
             return time.perf_counter()
 
+        def cached(name):
+            return os.path.join(coarse_cache, name)
+
         n = codes_int8.shape[0]
-        if cfg.num_clusters >= cfg.two_level_clusters:
-            raise NotImplementedError(
-                f"num_clusters {cfg.num_clusters} >= two_level_clusters "
-                f"{cfg.two_level_clusters}: two-level k-means is not ported")
+        if coarse_cache is not None and os.path.exists(cached("coarse.done")):
+            centroids = np.load(cached("centroids.npy"))
+            assign = np.load(cached("assign.npy"))
+            assert assign.shape[0] == n, "coarse cache is for another corpus"
+            if stage_s is not None and os.path.exists(cached("stage_s.json")):
+                with open(cached("stage_s.json")) as f:
+                    stage_s.update(json.load(f))
+            return centroids, assign, None
 
         t0 = time.perf_counter()
         sample, s_off, s_scale, s_sel = IVFIndex._train_sample(
             codes_int8, cfg, offset, scale, device=device)
         t0 = mark("sample_s", t0)
-        centroids, _ = kmeans(
-            sample, cfg.num_clusters, iters=cfg.kmeans_iters, seed=cfg.seed,
-            verbose=verbose,
-            chunk=min(4096, _round_up(max(len(sample) // 8, 256), 256)),
-            offset=s_off, scale=s_scale, device=device)
-        t0 = mark("kmeans_s", t0)
-        assign = assign_blocks(codes_int8, centroids, chunk=2048,
-                               offset=offset, scale=scale, device=device)
-        t0 = mark("assign_s", t0)
-        k_req = centroids.shape[0]
-        centroids, assign = _balance_lists(
-            codes_int8, centroids, assign, balance_factor=cfg.balance_factor,
-            rounds=3, offset=offset, scale=scale,
-            growth_cap=cfg.nlist_growth_cap, verbose=verbose, device=device)
+        l1_cents = None
+        if cfg.num_clusters >= cfg.two_level_clusters:
+            centroids, l1_cents, parent_offs = IVFIndex._two_level_kmeans(
+                sample, cfg, s_off, s_scale, verbose, coarse_cache,
+                device=device)
+            t0 = mark("kmeans_s", t0)
+            assign_fn = IVFIndex._hier_assigner(codes_int8, cfg, offset,
+                                                scale, device=device)
+            assign = assign_fn(l1_cents, centroids, parent_offs)
+            t0 = mark("assign_s", t0)
+            k_req = centroids.shape[0]
+            centroids, _, _, assign = _balance_lists_hier(
+                codes_int8, centroids, l1_cents, assign,
+                balance_factor=cfg.balance_factor, rounds=3, seed=cfg.seed,
+                probe=cfg.assign_probe, verbose=verbose, offset=offset,
+                scale=scale, assign_fn=assign_fn,
+                growth_cap=cfg.nlist_growth_cap, parent_offs=parent_offs,
+                device=device)
+            del assign_fn  # and with it the corpus on the device
+        else:
+            centroids, _ = kmeans(
+                sample, cfg.num_clusters, iters=cfg.kmeans_iters,
+                seed=cfg.seed, verbose=verbose,
+                chunk=min(4096, _round_up(max(len(sample) // 8, 256), 256)),
+                offset=s_off, scale=s_scale, device=device)
+            t0 = mark("kmeans_s", t0)
+            assign = assign_blocks(codes_int8, centroids, chunk=2048,
+                                   offset=offset, scale=scale, device=device)
+            t0 = mark("assign_s", t0)
+            k_req = centroids.shape[0]
+            centroids, assign = _balance_lists(
+                codes_int8, centroids, assign,
+                balance_factor=cfg.balance_factor, rounds=3, offset=offset,
+                scale=scale, growth_cap=cfg.nlist_growth_cap,
+                verbose=verbose, device=device)
+        # the backstop for lists splitting could not break, within what is
+        # left of the growth budget
         fp_budget = (None if cfg.nlist_growth_cap is None else max(
             int(np.ceil(cfg.nlist_growth_cap * k_req)) - centroids.shape[0],
             0))
-        centroids, assign = _force_partition(
+        centroids, _, assign = _force_partition(
             centroids, assign,
             cfg.balance_factor * max(n / centroids.shape[0], 1.0),
-            budget=fp_budget)
-        counts = np.bincount(assign, minlength=centroids.shape[0])
-        logger.info("nlist requested %d -> actual %d; list mean %.1f max %d",
-                    k_req, centroids.shape[0], float(counts.mean()),
-                    int(counts.max()))
+            l1_cents=l1_cents, budget=fp_budget, device=device)
+        IVFIndex._log_growth(k_req, centroids.shape[0], assign)
         mark("balance_s", t0)
+
+        if coarse_cache is not None:
+            os.makedirs(coarse_cache, exist_ok=True)
+            np.save(cached("centroids.npy"), np.asarray(centroids))
+            np.save(cached("assign.npy"), np.asarray(assign))
+            if stage_s:
+                with open(cached("stage_s.json"), "w") as f:
+                    json.dump(stage_s, f)
+            with open(cached("coarse.done"), "w") as f:
+                f.write("ok\n")
         return centroids, assign, (sample, s_off, s_scale, s_sel)
+
+    @staticmethod
+    def _two_level_kmeans(sample, cfg: IVFConfig, s_off, s_scale,
+                          verbose: bool, coarse_cache: Optional[str], *,
+                          device):
+        """``kmeans_two_level`` on the sample, read from and kept in the
+        coarse cache's ``kmeans.done`` checkpoint when there is a cache.
+        Returns (centroids sorted by parent, l1 centroids, parent
+        offsets)."""
+        names = ("km_centroids.npy", "km_l1.npy", "km_offs.npy")
+        done = (None if coarse_cache is None
+                else os.path.join(coarse_cache, "kmeans.done"))
+        if done is not None and os.path.exists(done):
+            return tuple(np.load(os.path.join(coarse_cache, f))
+                         for f in names)
+        out = kmeans_two_level(sample, cfg.num_clusters,
+                               iters=cfg.kmeans_iters, seed=cfg.seed,
+                               verbose=verbose, offset=s_off, scale=s_scale,
+                               device=device)
+        if done is not None:
+            os.makedirs(coarse_cache, exist_ok=True)
+            for f, arr in zip(names, out):
+                np.save(os.path.join(coarse_cache, f), np.asarray(arr))
+            with open(done, "w") as f:
+                f.write("ok\n")
+        return out
+
+    @staticmethod
+    def _hier_assigner(codes_int8, cfg: IVFConfig, offset: float,
+                       scale: float, *, device):
+        """The corpus's hierarchical assignment as ``fn(l1, centroids,
+        parent offsets)``: the corpus uploaded once while its int8 codes
+        fit ``DPH_ASSIGN_DEVICE_BYTES`` (default 9e9, the reference's),
+        else streamed block by block through the same grouped assignment
+        at every call."""
+        budget = int(float(os.environ.get("DPH_ASSIGN_DEVICE_BYTES", 9e9)))
+        if codes_int8.nbytes <= budget:
+            codes_dev = _upload(codes_int8, torch.int8, device)
+            return lambda l1, cents, offs: assign_corpus_hier(
+                codes_dev, l1, cents, offs, probe=cfg.assign_probe,
+                offset=offset, scale=scale)
+        return lambda l1, cents, offs: assign_hier_streamed(
+            codes_int8, l1, cents, offs, probe=cfg.assign_probe,
+            offset=offset, scale=scale, device=device)
+
+    @staticmethod
+    def _log_growth(k_req: int, k_act: int, assign: np.ndarray):
+        """Requested against actual nlist, and the list lengths."""
+        counts = np.bincount(assign, minlength=k_act)
+        logger.info("nlist requested %d -> actual %d (+%.1f%%); list mean "
+                    "%.1f max %d", k_req, k_act,
+                    100.0 * (k_act - k_req) / max(k_req, 1),
+                    float(counts.mean()), int(counts.max()))
+
+    @staticmethod
+    def build_host_save(codes_int8, cfg: IVFConfig, out_dir: str,
+                        offset: float = DEFAULT_OFFSET,
+                        scale: float = DEFAULT_SCALE,
+                        coarse_cache: Optional[str] = None,
+                        verbose: bool = False, chunk_rows: int = 1 << 20, *,
+                        device="cuda", stage_s: Optional[dict] = None) -> str:
+        """Build an SQ8 index for a corpus larger than the device and write
+        its save directory directly: the coarse quantizer on ``device``,
+        then the sorted codes streamed memmap → memmap in ``chunk_rows``
+        blocks, so no corpus-sized array exists on the device or a second
+        time on the host. ``index/tiered.py:TieredIVF`` serves the result.
+
+        As in the reference, the coarse quantizer is trained with the
+        default int8 affine whatever ``offset`` and ``scale`` say (a fault
+        of the reference for a store with another affine; the saved
+        ``ivf.pkl`` carries the given pair). stage_s: as in ``build``."""
+        assert cfg.fine_quant == "SQ8", \
+            "host-save build is the beyond-HBM SQ8 path (see TieredIVF)"
+        device = resolve_device(device)
+        n, d = codes_int8.shape
+        centroids, assign, _ = IVFIndex.build_coarse(
+            codes_int8, cfg, verbose=verbose, coarse_cache=coarse_cache,
+            stage_s=stage_s, device=device)
+        order = np.argsort(assign, kind="stable")
+        list_offsets = np.searchsorted(
+            assign[order], np.arange(centroids.shape[0] + 1)).astype(np.int32)
+        lens = np.diff(list_offsets)
+        cap = int(_round_up(max(int(lens.max()), 8), 8))
+        pad = _round_up(cap, RB) + (-(n + _round_up(cap, RB))) % RB
+        os.makedirs(out_dir, exist_ok=True)
+        mm = np.lib.format.open_memmap(
+            os.path.join(out_dir, "codes.npy"), mode="w+", dtype=np.int8,
+            shape=(n + pad, d))
+        for b0 in range(0, n, chunk_rows):
+            b1 = min(b0 + chunk_rows, n)
+            mm[b0:b1] = codes_int8[order[b0:b1]]
+        mm[n:] = 0
+        mm.flush()
+        del mm
+        np.save(os.path.join(out_dir, "centroids.npy"),
+                np.asarray(centroids, np.float32))
+        np.save(os.path.join(out_dir, "row_perm.npy"), np.concatenate(
+            [order, np.zeros(pad, order.dtype)]).astype(np.int64))
+        np.save(os.path.join(out_dir, "list_offsets.npy"), list_offsets)
+        extra = {"cfg": cfg, "rotation": None, "pq": None,
+                 "offset": float(offset), "scale": float(scale),
+                 "n_total": int(n), "int4_offset": INT4_OFFSET,
+                 "int4_scale": INT4_SCALE}
+        with open(os.path.join(out_dir, "ivf.pkl"), "wb") as f:
+            _RefPickler(f, protocol=pickle.DEFAULT_PROTOCOL).dump(extra)
+        return out_dir
 
     @staticmethod
     def _train_sample(codes_int8: np.ndarray, cfg: IVFConfig, offset: float,

@@ -29,8 +29,11 @@ rescore decodes each candidate window from the index's codes,
 handed back with ``return_idxs`` are rotated back, so ``q · v`` is the
 serve score. ``vecs_on_device`` keeps those vectors on the device.
 
-Not ported yet: the host-tiered rescore and the tiered / sharded indexes
-(``mesh`` raises).
+A tiered index (``index/tiered.py``, recognised by its
+``gather_rows_host``) serves a corpus larger than the device: no corpus-
+sized tensor is made, stage 1's hits come to the host, and stage 2 runs in
+numpy (``_rescore_spans_host``) over candidate windows gathered from the
+host memmap. The sharded indexes are not ported (``mesh`` raises).
 """
 
 from __future__ import annotations
@@ -144,6 +147,69 @@ def _rescore_spans(query_start, query_end, s_gids, e_gids, s_scores, e_scores,
     return out
 
 
+def _rescore_spans_host(query_start, query_end, s_gids, e_gids, s_scores,
+                        e_scores, gather_rows, f2o, doc_end_row, doc_base_row,
+                        offset, scale, *, max_answer_length: int,
+                        return_vecs: bool = False, n_total: int):
+    """Numpy twin of ``_rescore_spans`` for the host-tiered serve path: the
+    candidate windows (B·K·L rows) come through ``gather_rows`` from the
+    host memmap and the einsum and argmax run on the host. A copy of the
+    reference's (search.py:159-219)."""
+    L = max_answer_length
+    n = n_total
+
+    def windows(gids, offsets):
+        win = gids[..., None] + offsets  # [B, K, L]
+        wc = np.clip(win, 0, n - 1)
+        v = gather_rows(wc.reshape(-1)).reshape(wc.shape + (-1,))
+        v = v.astype(np.float32) / scale + offset
+        return win, wc, v
+
+    up = np.arange(L)
+    down = np.arange(-(L - 1), 1)
+    s_anchor = np.clip(s_gids, 0, n - 1)
+    e_anchor = np.clip(e_gids, 0, n - 1)
+
+    win_e, wc_e, evecs = windows(s_gids, up)
+    dist_e = f2o[wc_e] - f2o[s_anchor][..., None]
+    valid_e = (
+        (win_e < doc_end_row[s_anchor][..., None]) & (win_e >= 0)
+        & (dist_e >= 0) & (dist_e <= L))
+    e_part = np.einsum("bkld,bd->bkl", evecs, query_end)
+    joint_e = s_scores[..., None] + e_part + NEG_INF * (~valid_e)
+    best_e = np.argmax(joint_e, axis=-1)
+    best_e_score = np.max(joint_e, axis=-1)
+
+    win_s, wc_s, svecs = windows(e_gids, down)
+    dist_s = f2o[e_anchor][..., None] - f2o[wc_s]
+    valid_s = (
+        (win_s >= doc_base_row[e_anchor][..., None]) & (win_s >= 0)
+        & (dist_s >= 0) & (dist_s <= L))
+    s_part = np.einsum("bkld,bd->bkl", svecs, query_start)
+    joint_s = e_scores[..., None] + s_part + NEG_INF * (~valid_s)
+    best_s = np.argmax(joint_s, axis=-1)
+    best_s_score = np.max(joint_s, axis=-1)
+
+    out = {
+        "end_offset": best_e, "joint_from_start": best_e_score,
+        "start_offset": best_s - (L - 1), "joint_from_end": best_s_score,
+    }
+    if return_vecs:
+        bidx = np.arange(s_gids.shape[0])[:, None]
+        kidx = np.arange(s_gids.shape[1])[None, :]
+        out.update({
+            "end_vec_for_start": evecs[bidx, kidx, best_e],
+            "start_vec_anchor":
+                gather_rows(s_anchor.reshape(-1)).reshape(
+                    s_anchor.shape + (-1,)).astype(np.float32) / scale + offset,
+            "start_vec_for_end": svecs[bidx, kidx, best_s],
+            "end_vec_anchor":
+                gather_rows(e_anchor.reshape(-1)).reshape(
+                    e_anchor.shape + (-1,)).astype(np.float32) / scale + offset,
+        })
+    return out
+
+
 def _pack(tensors: dict):
     """Flatten a dict of device tensors into one int32 buffer (floats bit-
     cast, integers narrowed; every value here fits int32), so the host
@@ -191,20 +257,21 @@ def _sentencize(text: str):
 
 
 class MIPS:
-    """Phrase search engine over a flat or an IVF index on one device
-    (API parity with ref MIPS, index.py:23)."""
+    """Phrase search engine over a flat, an IVF or a tiered index on one
+    device (API parity with ref MIPS, index.py:23)."""
 
     def __init__(self, store: PhraseStore, index=None, rotation=None,
                  mesh=None, shard_axis: str = "shard",
                  collect_stats: bool = False, preload_meta: bool = True, *,
                  device=None):
         """The reference's parameters in its order (ref search.py:240-242).
-        index: a ``FlatIndex`` or ``IVFIndex`` (None: a flat int8 index over
-        the store). rotation: a [D, D] matrix applied to the queries of
-        both stages. mesh (with ``shard_axis``): not ported, raises when
-        set. collect_stats: record the unique docs a query's hits touch
-        (``num_docs_list``). preload_meta: decompress the doc metadata in
-        the background. device: where to upload the corpus when no
+        index: a ``FlatIndex``, ``IVFIndex``, ``TieredFlatIndex`` or
+        ``TieredIVF`` (None: a flat int8 index over the store). rotation:
+        a [D, D] matrix applied to the queries of both stages. mesh (with
+        ``shard_axis``): not ported, raises when set. collect_stats:
+        record the unique docs a query's hits touch (``num_docs_list``).
+        preload_meta: decompress the doc metadata in the background.
+        device: where to upload the corpus when no
         ``index`` is given (None: "cuda"); with an ``index``, None or its
         device. ``init_stages`` holds the seconds of each set-up stage."""
         if mesh is not None:
@@ -217,10 +284,13 @@ class MIPS:
             index = FlatIndex(store.vecs, store.offset, store.scale,
                               device="cuda" if device is None else device)
             stages["index_upload_s"] = round(time.perf_counter() - t, 3)
-        elif not isinstance(index, (FlatIndex, IVFIndex)):
+        # a tiered index rescores on the host from its row gather
+        self.tiered = hasattr(index, "gather_rows_host")
+        if not (self.tiered or isinstance(index, (FlatIndex, IVFIndex))):
             raise NotImplementedError(
-                "the port serves a FlatIndex or an IVFIndex")
-        elif device is not None and resolve_device(device).type != index.device.type:
+                "the port serves a FlatIndex, an IVFIndex or a tiered index")
+        if (device is not None
+                and resolve_device(device).type != index.device.type):
             raise ValueError(f"index is on {index.device}, asked for {device}")
         self.index = index
         self.device = index.device
@@ -244,11 +314,17 @@ class MIPS:
         rdt = np.int32 if store.n_vecs < 2**31 else np.int64
         doc_end_row = np.repeat(store.doc_bases[1:].astype(rdt), lens)
         doc_base_row = np.repeat(store.doc_bases[:-1].astype(rdt), lens)
-        self.vecs_dev = self._rescore_corpus(store, index, stages)
-        self.f2o_dev = torch.tensor(f2o, device=self.device)
-        self.doc_end_dev = torch.tensor(doc_end_row, device=self.device)
-        self.doc_base_dev = torch.tensor(doc_base_row, device=self.device)
-        _sync(self.device)
+        if self.tiered:
+            self.vecs_dev = None
+            self.f2o_host = f2o
+            self.doc_end_host = doc_end_row
+            self.doc_base_host = doc_base_row
+        else:
+            self.vecs_dev = self._rescore_corpus(store, index, stages)
+            self.f2o_dev = torch.tensor(f2o, device=self.device)
+            self.doc_end_dev = torch.tensor(doc_end_row, device=self.device)
+            self.doc_base_dev = torch.tensor(doc_base_row, device=self.device)
+            _sync(self.device)
         stages["serve_arrays_s"] = round(time.perf_counter() - t, 3)
         self.init_stages = stages
         self.num_docs_list: List[float] = []
@@ -374,6 +450,10 @@ class MIPS:
         device tensors whose columns are the candidates' ``cand_col``."""
         if vecs_on_device:
             return_idxs = True
+        if self.tiered:
+            return self._search_phrase_host(
+                query, s_gids, e_gids, s_scores, e_scores, max_answer_length,
+                return_idxs, return_sent, vecs_on_device)
         dev_vecs = None
         with self.timer.stage("rescore_device"):
             res = self._rescore(query, s_gids, e_gids, s_scores, e_scores,
@@ -391,6 +471,44 @@ class MIPS:
             # ONE device→host copy for everything stage 3 needs
             res = _unpack(buf.cpu().numpy(), layout)
         s_gids, e_gids = res.pop("s_gids"), res.pop("e_gids")
+        outs = self._assemble(res, s_gids, e_gids, return_idxs=return_idxs,
+                              return_sent=return_sent)
+        return (outs, dev_vecs) if dev_vecs is not None else outs
+
+    def _search_phrase_host(self, query, s_gids, e_gids, s_scores, e_scores,
+                            max_answer_length: int, return_idxs: bool,
+                            return_sent: bool, vecs_on_device: bool):
+        """``search_phrase`` over a tiered index: the hits come to the host
+        and ``_rescore_spans_host`` rescores there; returned vectors are
+        rotated back by ``Rᵀ`` (ref search.py:412-443)."""
+        query = torch.as_tensor(query, dtype=torch.float32, device=self.device)
+        qs, qe = query.chunk(2, dim=1)
+        if self.R is not None:
+            qs, qe = qs @ self.R, qe @ self.R
+        dev_vecs = None
+        with self.timer.stage("rescore_host"):
+            s_gids, e_gids, s_scores, e_scores = (
+                torch.as_tensor(t).cpu().numpy()
+                for t in (s_gids, e_gids, s_scores, e_scores))
+            s_gids, e_gids = s_gids.astype(np.int64), e_gids.astype(np.int64)
+            res = _rescore_spans_host(
+                qs.cpu().numpy(), qe.cpu().numpy(), s_gids, e_gids, s_scores,
+                e_scores, self.index.gather_rows_host, self.f2o_host,
+                self.doc_end_host, self.doc_base_host, self.store.offset,
+                self.store.scale, max_answer_length=max_answer_length,
+                return_vecs=return_idxs, n_total=self.store.n_vecs)
+            if return_idxs and self.R is not None:
+                rt = self.R.cpu().numpy().T
+                for key in VEC_KEYS:
+                    res[key] = res[key] @ rt
+            if vecs_on_device:
+                # K start-anchored spans, then K end-anchored spans
+                dev_vecs = tuple(
+                    torch.as_tensor(np.concatenate(
+                        [res.pop(a), res.pop(b)], axis=1), device=self.device)
+                    for a, b in (("start_vec_anchor", "start_vec_for_end"),
+                                 ("end_vec_for_start", "end_vec_anchor")))
+                return_idxs = False
         outs = self._assemble(res, s_gids, e_gids, return_idxs=return_idxs,
                               return_sent=return_sent)
         return (outs, dev_vecs) if dev_vecs is not None else outs

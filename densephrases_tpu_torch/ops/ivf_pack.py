@@ -35,6 +35,7 @@ import torch
 
 from densephrases_tpu_torch.ops.kmeans import _bf16
 from densephrases_tpu_torch.ops.pq import pq_lut
+from densephrases_tpu_torch.ops.topk import topk as _top_k
 from densephrases_tpu_torch.utils.cuda_build import CudaKernel
 
 NEG_INF = -1e30
@@ -282,13 +283,6 @@ def pq_pack_score(lut_bf, codes, blk, *, impl: str = "auto", out=None):
 
 
 # ------------------------------------------------------------ the scans
-def _top_k(s, k: int):
-    """Top-k along the last dim, ties to the lower index (as lax.top_k):
-    a stable descending sort."""
-    v, i = torch.sort(s, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
-
-
 def _topk2(s, k: int):
     """Exact two-stage top-k over wide score rows, ties to the lower index:
     per 2048-column segment, then over the segments' winners (kept in

@@ -22,6 +22,7 @@ from densephrases_tpu_torch.cli import (
 from densephrases_tpu_torch.index import ivf, search
 from densephrases_tpu_torch.index.flat import FlatIndex
 from densephrases_tpu_torch.index.ivf import IVFIndex
+from densephrases_tpu_torch.index.tiered import TieredFlatIndex, TieredIVF
 from densephrases_tpu_torch.models import encoder, from_jax
 from densephrases_tpu_torch.models.bert import BertConfig
 from densephrases_tpu_torch.ops import kmeans, opq, pq
@@ -32,6 +33,11 @@ ENTRY_POINTS = {
     "IVFIndex.__init__": IVFIndex.__init__,
     "IVFIndex.build": IVFIndex.build,
     "IVFIndex.load": IVFIndex.load,
+    "IVFIndex.build_host_save": IVFIndex.build_host_save,
+    "TieredFlatIndex.__init__": TieredFlatIndex.__init__,
+    "TieredIVF.__init__": TieredIVF.__init__,
+    "TieredIVF.load": TieredIVF.load,
+    "TieredIVF.from_index": TieredIVF.from_index,
     "init_encoder_params": encoder.init_encoder_params,
     "encoder_from_jax": from_jax.encoder_from_jax,
     "load_encoder": common.load_encoder,
@@ -46,10 +52,17 @@ HELPERS = {
     "kmeans.accumulate_blocks": kmeans.accumulate_blocks,
     "kmeans.assign_blocks": kmeans.assign_blocks,
     "kmeans.kmeans": kmeans.kmeans,
+    "kmeans.sort_children": kmeans.sort_children,
+    "kmeans.kmeans_batched": kmeans.kmeans_batched,
+    "kmeans.kmeans_two_level": kmeans.kmeans_two_level,
+    "kmeans.assign_blocks_hier": kmeans.assign_blocks_hier,
+    "kmeans.assign_hier_streamed": kmeans.assign_hier_streamed,
     "pq.train_pq": pq.train_pq,
     "pq.pq_encode": pq.pq_encode,
     "opq.train_opq": opq.train_opq,
     "ivf._balance_lists": ivf._balance_lists,
+    "ivf._balance_lists_hier": ivf._balance_lists_hier,
+    "ivf._force_partition": ivf._force_partition,
     "ivf._sq4_encode_stream": ivf._sq4_encode_stream,
     "IVFIndex.build_coarse": IVFIndex.build_coarse,
     "IVFIndex._train_sample": IVFIndex._train_sample,
@@ -83,8 +96,9 @@ def _no_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("call", ["init_encoder_params", "FlatIndex",
-                                  "init_cross_params", "load_encoder"])
-def test_no_device_without_a_gpu_raises(monkeypatch, call):
+                                  "init_cross_params", "load_encoder",
+                                  "TieredIVF.load", "TieredFlatIndex"])
+def test_no_device_without_a_gpu_raises(monkeypatch, call, tmp_path):
     _no_gpu(monkeypatch)
     cfg = BertConfig.tiny()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -92,6 +106,14 @@ def test_no_device_without_a_gpu_raises(monkeypatch, call):
             encoder.init_encoder_params(cfg)
         elif call == "FlatIndex":
             FlatIndex(np.zeros((8, 4), np.int8))
+        elif call == "TieredIVF.load":
+            codes = np.random.default_rng(0).integers(
+                -128, 128, (64, 8)).astype(np.int8)
+            IVFIndex.build(codes, ivf.IVFConfig(num_clusters=4),
+                           device="cpu").save(str(tmp_path / "ivf"))
+            TieredIVF.load(str(tmp_path / "ivf"))
+        elif call == "TieredFlatIndex":
+            TieredFlatIndex(np.zeros((8, 4), np.int8))
         elif call == "init_cross_params":
             cross_encoder.init_cross_params(cfg)
         else:

@@ -264,16 +264,19 @@ def test_build_matches_reference(fine_quant):
                                       np.asarray(ref.int4_offset))
 
 
-def test_build_stage_seconds_and_two_level_refused():
+@pytest.mark.parametrize("two_level", [False, True],
+                         ids=["flat", "two_level"])
+def test_build_stage_seconds(two_level):
+    # both coarse branches report the same stages; the two-level one runs
+    # from num_clusters >= two_level_clusters
     stages = {}
-    IVFIndex.build(_corpus(), _cfg(IVFConfig, "SQ8"), stage_s=stages,
-                   device="cpu")
+    index = IVFIndex.build(_corpus(), _cfg(
+        IVFConfig, "SQ8", two_level_clusters=NLIST if two_level else 8192),
+        stage_s=stages, device="cpu")
     assert set(stages) == {"sample_s", "kmeans_s", "assign_s", "balance_s",
                            "fine_s"}
-    with pytest.raises(NotImplementedError, match="two-level"):
-        IVFIndex.build(_corpus(), IVFConfig(num_clusters=16,
-                                            two_level_clusters=16),
-                       device="cpu")
+    assert all(v >= 0 for v in stages.values())
+    assert NLIST <= index.nlist <= np.ceil(1.1 * NLIST) + 1
 
 
 # ------------------------------------------------------ the save format
@@ -366,11 +369,42 @@ def test_legacy_config_without_pq_residual(ref_saves):
     assert port.pq_residual and not legacy.pq_residual
 
 
-def test_unaligned_memmap_codes_refused(tmp_path, ref_saves):
-    port = IVFIndex.load(ref_saves("SQ8"), device="cpu")
-    codes = np.lib.format.open_memmap(str(tmp_path / "c.npy"), mode="w+",
-                                      dtype=np.int8, shape=(N + 5, D))
-    with pytest.raises(NotImplementedError, match="unaligned"):
-        IVFIndex(port.cfg, port.centroids.numpy(),
-                 np.arange(N + 5), port.list_offsets.numpy(), codes,
-                 n_total=N, device="cpu")
+def test_unaligned_memmap_codes_serve_like_reference(tmp_path, ref_saves):
+    # a legacy save whose code rows are not a multiple of 32, loaded as a
+    # memmap: the port pads it on the device as it uploads; the reference,
+    # given the same save in RAM, pads it on the host and scans it packed
+    path = ref_saves("SQ8")
+    port = IVFIndex.load(path, device="cpu")
+    offs = port.list_offsets.numpy()
+    n_legacy = int(offs[-1]) + port.cap  # cap padding only (tests/test_ivf.py)
+    if n_legacy % 32 == 0:
+        n_legacy += 8
+    codes = np.zeros((n_legacy, D), np.int8)
+    perm = np.zeros(n_legacy, np.int64)
+    m = min(n_legacy, port.codes.shape[0])
+    codes[:m] = port.codes.numpy()[:m]
+    perm[:m] = port.row_perm.numpy()[:m]
+    np.save(str(tmp_path / "codes.npy"), codes)
+    mm = np.load(str(tmp_path / "codes.npy"), mmap_mode="r")
+    assert isinstance(mm, np.memmap) and mm.shape[0] % 32
+    legacy = IVFIndex(port.cfg, port.centroids.numpy(), perm, offs, mm,
+                      n_total=N, device="cpu")
+    assert legacy.codes.shape[0] == _round_up(n_legacy, 32)
+    assert not legacy.codes[n_legacy:].any()
+    assert "codes" not in legacy._host_arrays  # save() writes the padded copy
+    ref = JaxIVFIndex(JaxIVFConfig(**vars(port.cfg)),
+                      port.centroids.numpy(), perm, offs, np.array(mm),
+                      n_total=N)
+    assert ref._packed_ok
+    q = _queries(8, seed=41)
+    for nprobe in (4, NLIST):
+        _same_results(ref.search(q, top_k=8, nprobe=nprobe),
+                      legacy.search(q, top_k=8, nprobe=nprobe))
+    legacy.save(str(tmp_path / "resaved"))
+    np.testing.assert_array_equal(
+        np.load(str(tmp_path / "resaved" / "codes.npy")),
+        legacy.codes.numpy())
+
+
+def _round_up(x, m):
+    return -(-x // m) * m

@@ -1,6 +1,7 @@
 """The port's offline workflow against the JAX reference: ``dump_phrases``'
 driver options, the truecaser, the passage eval, and the three drivers
-(dump → build index → evaluate) on one corpus and one set of weights,
+(dump → build index → evaluate, on the device or the host tier) on one
+corpus and one set of weights,
 mirroring tests/test_cli_pipeline.py:50-120. Each package gets its own
 encoder directory, saved from the same weights through
 ``models/from_jax.py``."""
@@ -318,11 +319,25 @@ def test_eval_truecases_lowercase_questions(pipeline, tmp_path):
     assert model.truecase.get_true_case("the paris river") == "The Paris River"
 
 
-def test_index_tier_host_raises(pipeline):
-    with pytest.raises(NotImplementedError, match="tiered serving"):
-        eval_phrase_retrieval.main(_eval_args(
-            pipeline["ws"], "enc_port", "start/16_flat_SQ8", "p_host",
-            "--index_tier", "host"), device="cpu")
+@pytest.mark.parametrize("index_name", ["start/16_flat_SQ8", "start/none"])
+def test_index_tier_host_matches_reference(pipeline, index_name):
+    # --index_tier host in both packages: the memmapped store with a
+    # TieredIVF over the saved index, or a TieredFlatIndex without one
+    ws = pipeline["ws"]
+    tag = "host_" + index_name.replace("/", "_")
+    extra = ("--index_tier", "host")
+    ref = jax_eval.main(_eval_args(ws, "enc_jax", index_name, f"j_{tag}",
+                                   *extra))
+    out = eval_phrase_retrieval.main(
+        _eval_args(ws, "enc_port", index_name, f"p_{tag}", *extra),
+        device="cpu")
+    for key in ("em_top1", "em_topk", "f1_top1", "n"):
+        assert out[key] == ref[key], key
+    _same_predictions(out["predictions"], ref["predictions"])
+    # and the device tier of the same driver, on the same index
+    dev = eval_phrase_retrieval.main(
+        _eval_args(ws, "enc_port", index_name, f"pd_{tag}"), device="cpu")
+    _same_predictions(out["predictions"], dev["predictions"])
 
 
 def test_opq_index_from_the_port_serves_three_ways(pipeline):

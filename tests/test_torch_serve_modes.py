@@ -2,7 +2,8 @@
 indexes the reference built and saved: decode-mode PQ serving (a PQ / OPQ
 index with no int8 refine), the host refine tier, the query rotation
 (``MIPS.R``), ``vecs_on_device``, the int4 flat index, ``MIPS``'s other
-constructor options, and the unported parameters that raise."""
+constructor options, the reference's build parameters, and the unported
+ones that raise."""
 
 import os
 import pickle
@@ -20,6 +21,7 @@ from densephrases_tpu.index.search import MIPS as JaxMIPS
 from densephrases_tpu.index.store import DocMeta as JaxDocMeta
 from densephrases_tpu.index.store import PhraseStore as JaxPhraseStore
 from densephrases_tpu.index.store import StoreWriter as JaxStoreWriter
+from densephrases_tpu.ops.kmeans import kmeans as jax_kmeans
 from densephrases_tpu.ops.pq import unpack_nibbles_dev as jax_unpack_nibbles
 from densephrases_tpu.ops.quant import float_to_int8, int8_to_float
 from densephrases_tpu_torch.index.flat import FlatIndex
@@ -452,18 +454,35 @@ def test_mips_options_follow_reference(stores, monkeypatch):
     assert calls == [True]
 
 
-@pytest.mark.parametrize("call", ["MIPS mesh", "FlatIndex mesh",
-                                  "build coarse_cache", "kmeans rounded"])
-def test_unported_parameters_raise(stores, call, tmp_path):
+@pytest.mark.parametrize("call", ["MIPS mesh", "FlatIndex mesh"])
+def test_unported_parameters_raise(stores, call):
     _, pstore = stores
     codes = np.asarray(pstore.vecs)
     with pytest.raises(NotImplementedError):
         if call == "MIPS mesh":
             MIPS(pstore, None, None, object(), device="cpu")
-        elif call == "FlatIndex mesh":
-            FlatIndex(codes, -2.0, 20.0, object(), device="cpu")
-        elif call == "build coarse_cache":
-            IVFIndex.build(codes, IVFConfig(num_clusters=8), -2.0, 20.0,
-                           False, str(tmp_path), device="cpu")
         else:
-            kmeans(codes, 8, 2, 0, 256, False, True, device="cpu")
+            FlatIndex(codes, -2.0, 20.0, object(), device="cpu")
+
+
+@pytest.mark.parametrize("call", ["build coarse_cache", "kmeans rounded"])
+def test_reference_parameters_match_reference(stores, call, tmp_path):
+    # accepted by position, as the reference takes them, and equal to it
+    jstore, pstore = stores
+    codes = np.asarray(pstore.vecs)
+    if call == "build coarse_cache":
+        port = IVFIndex.build(codes, IVFConfig(num_clusters=8), -2.0, 20.0,
+                              False, str(tmp_path / "p"), device="cpu")
+        ref = JaxIVFIndex.build(codes, JaxIVFConfig(num_clusters=8), -2.0,
+                                20.0, False, str(tmp_path / "j"))
+        assert os.path.exists(tmp_path / "p" / "coarse.done")
+        np.testing.assert_array_equal(
+            np.load(tmp_path / "p" / "assign.npy"),
+            np.load(tmp_path / "j" / "assign.npy"))
+        np.testing.assert_allclose(port.centroids.numpy(),
+                                   np.asarray(ref.centroids), atol=1e-4)
+    else:
+        pc, pa = kmeans(codes, 8, 2, 0, 256, False, True, device="cpu")
+        rc, ra = jax_kmeans(codes, 8, 2, 0, 256, False, True)
+        np.testing.assert_allclose(pc, rc, atol=1e-4)
+        assert pa.shape == (len(codes),) and (pa == ra).mean() >= 0.99
