@@ -53,13 +53,26 @@ written kernel on that path against its plain PyTorch version:
                  ``TieredIVF`` at nprobe 16 and 256, ``TieredFlatIndex`` vs
                  the flat index, and the drivers at their defaults on phase
                  7's dump, evaluated on the device and the host tier
+  9. trainers    the trainers at BERT-base width through their entry points:
+                 a. ``train_cross_encoder.main`` (the teacher, batch 12 x
+                 cross length 448) on phase 6's SQuAD file; b. ``train_rc.
+                 main --lambda_kl --teacher_dir`` loading a's teacher; c.
+                 ``read_passages`` with it on 64 pairs, against the plain
+                 attention; d. ``pretrain_mlm`` at batch 64 x L 128, the
+                 backbone saved as an encoder and reloaded, one kernel step
+                 against one plain step; e. ``train_query.main`` (query-side
+                 fine-tuning, batch 12, top-k 100) over phase 7's OPQ96 index
+                 with the device refine, the output served; f. phase 7's
+                 encoder as a ``pytorch_model.bin`` through ``load_encoder``.
+                 Each trainer's step ms, steps/s and peak device memory
 
 Kernel A's launch counter is zeroed right before phase 3 and read after
 phase 4's main-path work; kernels C and D's are zeroed right before phase 5
 and read after it; kernels A and B's are zeroed again right before phase 6's
 ``train_rc.main`` and read right after it, and A, C and D's right before
 phase 7 and read at its end; A and C's right before phase 8's drivers
-(part g) and read after them; phases 6, 7 and 8 must equal the counts
+(part g) and read after them; A, B and D's right before each part of phase
+9 and read right after it; phases 6, 7, 8 and 9 must equal the counts
 their paths imply. A kernel of a path that never launched fails the run.
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when there is no CUDA device. The second-last
@@ -71,10 +84,13 @@ Run from the repository root:  python3 chip_smoke.py
 """
 
 import concurrent.futures
+import contextlib
+import dataclasses
 import filecmp
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -97,12 +113,17 @@ KERNEL_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # kernel A (attention forward) shapes: one query tower at serve batch 64
 # (L 32) and both towers' batches together; at train batch 12 the query
 # towers (L 64), the phrase tower (L 384) and the teacher's cross input
-# (L 448, TrainOptions); a dump batch of 16 windows of 512 tokens
+# (L 448, TrainOptions); a dump batch of 16 windows of 512 tokens; MLM
+# pretraining at batch 64 x L 128
 ATTN_FWD_SHAPES = ((64, 12, 32, 64), (128, 12, 32, 64), (12, 12, 64, 64),
-                   (12, 12, 384, 64), (12, 12, 448, 64), (16, 12, 512, 64))
+                   (12, 12, 384, 64), (12, 12, 448, 64), (16, 12, 512, 64),
+                   (64, 12, 128, 64))
 # kernel B (attention backward) shapes: the phrase tower at train batch 12 x
-# L 384, the query towers at L 64, the longest window (16 x L 512)
-ATTN_BWD_SHAPES = ((12, 12, 384, 64), (12, 12, 64, 64), (16, 12, 512, 64))
+# L 384, the query towers at L 64, the longest window (16 x L 512), the
+# cross tower's backward (the teacher's training, 12 x L 448) and MLM
+# (64 x L 128)
+ATTN_BWD_SHAPES = ((12, 12, 384, 64), (12, 12, 64, 64), (16, 12, 512, 64),
+                   (12, 12, 448, 64), (64, 12, 128, 64))
 # every head-dim instance (16, 32, 64, 128) at lengths that end in a
 # partial tile, for correctness only: kernel B against ATTN_BWD_RTOL, and
 # kernel A against attention_plain with FN_VS_AUTOGRAD_RTOL (in bf16
@@ -197,6 +218,25 @@ TIERED_ID_AGREE, TIERED_SCORE_RTOL = 0.99, 1e-4
 # the eval driver's device tier vs its host tier: top-1 predictions equal
 # for this share of the questions; a miss must be a near-tie of span scores
 DRIVER_TOP1_AGREE, NEAR_TIE_RTOL = 0.98, 1e-4
+# phase 9: the teacher at batch 12 (cross length TRAIN_SEQ + TRAIN_QUERY =
+# 448) for one epoch of phase 6's SQuAD file; the reader on READER_PAIRS
+# pairs; MLM at batch 64 x L 128 for MLM_STEPS steps on phase 3's corpus
+# (its whole-word vocab at BertConfig() width); one epoch of query-side
+# fine-tuning at batch 12, top-k 100, on phase 7's QA file
+CROSS_BATCH, READER_PAIRS, READER_LEN = 12, 64, 384
+MLM_BATCH, MLM_SEQ, MLM_STEPS = 64, 128, 6
+QSFT_BATCH, QSFT_TOP_K = 12, 100
+# the reader through the kernels vs through the plain attention, same
+# teacher and pairs: bf16 towers through 12 layers, so a span score (a sum
+# of two logits) moves by up to a few 1e-3 relative; a span that differs
+# must be a near-tie within that
+READER_SCORE_RTOL = 2e-2
+# phase 7's encoder read back from a pytorch_model.bin: its weights equal
+# the source's bit for bit, yet its fp32 query vectors (12 layers of fp32
+# GEMMs) sit apart from the source's by fp32 sums taken in another order
+# (1.2e-6 of the largest on an H100, while the source against itself gives
+# 0; the log prints both)
+HF_QUERY_RTOL = 1e-5
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense rates at
 # 700 W): a kernel's bound is the larger of the bytes it must move over the
 # memory rate and its operations over the peak rate for their type (bf16
@@ -1497,6 +1537,346 @@ def phase_scale(tmp, config):
     return counts
 
 
+@contextlib.contextmanager
+def timed_steps(module, factory):
+    """While open, every train step that ``module.factory`` builds is timed
+    on the card (a sync before and after; the trainers read each step's
+    loss anyway). Yields the list of step ms."""
+    times = []
+    make = getattr(module, factory)
+
+    def wrapped(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    setattr(module, factory, wrapped)
+    try:
+        yield times
+    finally:
+        setattr(module, factory, make)
+
+
+def checksum(*modules):
+    """fp64 sum of every parameter of the modules."""
+    return sum(float(p.detach().double().sum()) for m in modules
+               for p in m.parameters())
+
+
+def same_params(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                  b.parameters()))
+
+
+def mlm_grads(params, config, batch, draws, impl, mask_id, seed):
+    """One ``mlm_loss`` forward + backward with a fixed dropout seed:
+    (loss, {"bert" | "mlm": flat fp32 gradient})."""
+    from densephrases_tpu_torch.train.mlm import mlm_loss
+
+    named = dict(params.named_parameters())
+    loss, _ = mlm_loss(params, config, batch["input_ids"],
+                       batch["attention_mask"], draws, mask_token_id=mask_id,
+                       dropout=torch.Generator().manual_seed(seed),
+                       attn_impl=impl)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    parts = {}
+    for n, g in zip(named, grads):
+        parts.setdefault(n.split(".")[0], []).append(g.float().ravel())
+    return float(loss.detach()), {k: torch.cat(v) for k, v in parts.items()}
+
+
+def phase_trainers(tmp, config, tok, docs, smi):
+    """Phase 9: the trainers through their entry points at BERT-base width,
+    on phase 6's SQuAD file and phase 7's encoder, dump, OPQ96 index and QA
+    file (see the module docstring, a-f). Kernels A, B and D count from
+    zero right before each part and are read right after it; each part's
+    counts must equal what its path implies. Returns the sums."""
+    from densephrases_tpu_torch.cli import (
+        train_cross_encoder, train_query, train_rc)
+    from densephrases_tpu_torch.cli.common import load_encoder, save_encoder
+    from densephrases_tpu_torch.data.features import (
+        convert_questions_to_features)
+    from densephrases_tpu_torch.data.qa import load_rc_examples
+    from densephrases_tpu_torch.eval.reader import read_passages
+    from densephrases_tpu_torch.index.ivf import IVFIndex
+    from densephrases_tpu_torch.index.search import MIPS
+    from densephrases_tpu_torch.index.store import PhraseStore
+    from densephrases_tpu_torch.model import DensePhrases
+    from densephrases_tpu_torch.models.attention import (
+        ATTENTION_BWD, ATTENTION_FWD)
+    from densephrases_tpu_torch.models.encoder import embed_query
+    from densephrases_tpu_torch.models.hf_import import state_dict_from_encoder
+    from densephrases_tpu_torch.ops.ivf_pack import PQ_PACK_SCORE
+    from densephrases_tpu_torch.train import cross_encoder, mlm, query
+    from densephrases_tpu_torch.train.cross_encoder import init_cross_params
+
+    root = os.path.join(tmp, "trainers")
+    os.makedirs(root)
+    off = os.path.join(tmp, "offline")
+    enc, dump, qa_path = (os.path.join(off, d)
+                          for d in ("enc", "dump", "qa.json"))
+    squad = os.path.join(tmp, "train.json")
+    layers = config.num_hidden_layers
+    kernels = {"A": ATTENTION_FWD, "B": ATTENTION_BWD, "D": PQ_PACK_SCORE}
+    totals = {k: 0 for k in kernels}
+    rc_shape = ["--max_seq_length", str(TRAIN_SEQ), "--max_query_length",
+                str(TRAIN_QUERY)]
+
+    base = {}
+
+    def start():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base["gib"] = torch.cuda.memory_allocated() / 2 ** 30
+        for kernel in kernels.values():
+            kernel.launches = 0
+        return time.perf_counter()
+
+    def finish(part, t0, want):
+        """Read the counts right after a part's path; (wall s, peak GiB)."""
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: kernel.launches for k, kernel in kernels.items()}
+        log("9 trainers", part=part,
+            **{f"{k.lower()}_launches": v for k, v in got.items()},
+            **{f"{k.lower()}_expected": v for k, v in want.items()})
+        if got != want:
+            raise AssertionError(f"phase 9 {part}: launches {got} != "
+                                 f"expected {want}")
+        for k, v in got.items():
+            totals[k] += v
+        return wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def report(trainer, times, wall, peak, **extra):
+        step_ms = float(np.median(times[1:] if len(times) > 1 else times))
+        log("9 trainers", trainer=trainer, steps=len(times),
+            wall_s=round(wall, 3), first_step_ms=times[0],
+            step_ms_median=step_ms, steps_per_s=1e3 / step_ms,
+            peak_mem_gib=round(peak, 3),
+            held_before_gib=round(base["gib"], 3), card=repr(smi), **extra)
+
+    # a. the teacher: one epoch at batch 12, cross length 448
+    teacher_dir = os.path.join(root, "teacher")
+    with timed_steps(cross_encoder, "make_cross_train_step") as times:
+        t0 = start()
+        teacher, losses = train_cross_encoder.main(
+            ["--load_dir", enc, "--train_file", squad, "--output_dir",
+             teacher_dir, "--per_device_train_batch_size", str(CROSS_BATCH),
+             "--num_train_epochs", "1"] + rc_shape, device=DEVICE)
+    steps = len(losses)
+    wall, peak = finish("a cross_encoder", t0, {
+        "A": 2 * layers * steps, "B": layers * steps, "D": 0})
+    report("cross_encoder", times, wall, peak, batch=CROSS_BATCH,
+           cross_len=TRAIN_SEQ + TRAIN_QUERY, loss_first=losses[0],
+           loss_last=losses[-1])
+    if not steps or not np.isfinite(losses).all() or not os.path.isdir(
+            os.path.join(teacher_dir, "params")):
+        raise AssertionError(f"train_cross_encoder: {steps} steps, losses "
+                             f"{losses}, saved {os.listdir(teacher_dir)}")
+
+    # b. the teacher into RC distillation: two steps
+    t0 = start()
+    state, _ = train_rc.main(
+        ["--load_dir", enc, "--train_file", squad, "--output_dir",
+         os.path.join(root, "rc_kl"), "--lambda_kl", "2.0", "--teacher_dir",
+         teacher_dir, "--per_device_train_batch_size", str(TRAIN_BATCH),
+         "--warmup_steps", "1", "--max_steps", "2"] + rc_shape,
+        device=DEVICE)
+    # per step 3 towers + their remat recomputes + the teacher; then
+    # filter_test's one batch
+    finish("b teacher_into_rc", t0, {"A": 2 * 7 * layers + layers,
+                                     "B": 2 * 3 * layers, "D": 0})
+    random = init_cross_params(config, torch.Generator().manual_seed(43),
+                               device=DEVICE)  # what no --teacher_dir gives
+    sums = {"loaded": checksum(state.params.cross, state.params.qa_outputs),
+            "trained": checksum(teacher.cross, teacher.qa_outputs),
+            "random": checksum(random.cross, random.qa_outputs)}
+    equal = (same_params(state.params.cross, teacher.cross)
+             and same_params(state.params.qa_outputs, teacher.qa_outputs))
+    log("9 trainers", part="b teacher_into_rc", teacher_checksums=sums,
+        teacher_equal_to_a=equal)
+    if not equal or sums["loaded"] == sums["random"]:
+        raise AssertionError("train_rc did not load the trained teacher")
+    del state, random
+
+    # c. the reader: 64 (question, passage) pairs at max_length 384
+    examples = load_rc_examples(squad)[:READER_PAIRS]
+    qs = [e["question"] for e in examples]
+    ps = [e["context"] for e in examples]
+    t0 = start()
+    got = read_passages(teacher, config, tok, qs, ps, max_length=READER_LEN)
+    finish("c reader", t0, {"A": layers, "B": 0, "D": 0})
+    want = read_passages(teacher, config, tok, qs, ps, max_length=READER_LEN,
+                         attn_impl="plain")
+    same = [(g["start_pos"], g["end_pos"]) == (w["start_pos"], w["end_pos"])
+            for g, w in zip(got, want)]
+    gap = max(abs(g["score"] - w["score"]) / max(1.0, abs(w["score"]))
+              for g, w in zip(got, want))
+    log("9 trainers", part="c reader", pairs=len(qs), span_agreement=float(
+        np.mean(same)), max_rel_score_gap=gap, tol=READER_SCORE_RTOL,
+        ms=host_ms(lambda: read_passages(teacher, config, tok, qs, ps,
+                                         max_length=READER_LEN), reps=3),
+        plain_ms=host_ms(lambda: read_passages(
+            teacher, config, tok, qs, ps, max_length=READER_LEN,
+            attn_impl="plain"), reps=3),
+        first_answer=repr(got[0]["answer"][:40]))
+    if len(got) != len(qs) or gap > READER_SCORE_RTOL or not all(
+            g["context"][g["start_pos"]:g["end_pos"]] == g["answer"]
+            for g in got):
+        raise AssertionError("reader: kernel and plain answers disagree")
+    del teacher
+
+    # d. MLM at the phase's width (BertConfig()) over phase 3's corpus and
+    # whole-word vocab
+    mcfg = dataclasses.replace(config, vocab_size=tok.vocab_size)
+    texts = [p for d in docs for p in d["paragraphs"]]
+    with timed_steps(mlm, "make_mlm_step") as times:
+        t0 = start()
+        mparams, hist = mlm.pretrain_mlm(
+            texts, tok, mcfg, steps=MLM_STEPS, batch_size=MLM_BATCH,
+            seq_len=MLM_SEQ, log_every=1, seed=SEED, device=DEVICE)
+    wall, peak = finish("d mlm", t0, {"A": 2 * layers * MLM_STEPS,
+                                      "B": layers * MLM_STEPS, "D": 0})
+    report("mlm", times, wall, peak, batch=MLM_BATCH, seq=MLM_SEQ,
+           loss=hist["loss"], acc=hist["acc"])
+    if len(hist["loss"]) != MLM_STEPS or not np.isfinite(hist["loss"]).all():
+        raise AssertionError(f"pretrain_mlm: {hist}")
+    mlm_dir = os.path.join(root, "mlm_enc")
+    save_encoder(mlm_dir, mlm.encoder_params_from_backbone(
+        mparams.bert, mcfg, torch.Generator().manual_seed(SEED)), mcfg, tok)
+    loaded, lcfg, _ = load_encoder(mlm_dir, device=DEVICE)
+    if lcfg != mcfg or not all(same_params(getattr(loaded, t), mparams.bert)
+                               for t in ("phrase", "query_start", "query_end")):
+        raise AssertionError("the MLM backbone did not reload as the towers")
+    del loaded
+    # one step through the kernels against one through the plain attention
+    rows = mlm.pack_chunks(texts, tok, MLM_SEQ)[:MLM_BATCH]
+    batch = {"input_ids": torch.as_tensor(rows, device=DEVICE),
+             "attention_mask": torch.as_tensor(
+                 (rows != tok.pad_token_id).astype(np.int32), device=DEVICE)}
+    draws = mlm.mlm_draws(tuple(rows.shape), mcfg.vocab_size,
+                          torch.Generator(device=DEVICE).manual_seed(SEED))
+    loss, grad = {}, {}
+    for impl in ("cuda", "plain"):
+        loss[impl], grad[impl] = mlm_grads(mparams, mcfg, batch, draws, impl,
+                                           tok.mask_token_id, 5)
+    rel = abs(loss["cuda"] - loss["plain"]) / abs(loss["plain"])
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        grad["cuda"][k], grad["plain"][k], dim=0)) for k in grad["plain"]}
+    del grad
+    timing = {}
+    for impl in ("plain", "cuda", "cuda", "plain"):
+        opt = mlm.make_mlm_optimizer(1e-4, 1, 100)
+        st = opt.init(dict(mparams.named_parameters()))
+        step = mlm.make_mlm_step(mcfg, opt, mask_token_id=tok.mask_token_id,
+                                 attn_impl=impl)
+        ms = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(mparams, st, batch, draws, torch.Generator().manual_seed(i))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+        timing.setdefault(impl, []).extend(ms[1:])
+        del opt, st
+    row = {"loss_kernel": loss["cuda"], "loss_plain": loss["plain"],
+           "loss_rel_diff": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+           **{f"grad_cos_{k}": c for k, c in cos.items()},
+           "cos_min": TRAIN_GRAD_COS,
+           "step_ms_kernel": float(np.median(timing["cuda"])),
+           "step_ms_plain": float(np.median(timing["plain"]))}
+    log("9 compare", trainer="mlm", **row)
+    if rel > TRAIN_LOSS_RTOL or min(cos.values()) < TRAIN_GRAD_COS:
+        raise AssertionError(f"MLM step: kernels and plain disagree: {row}")
+    del mparams, batch, draws
+    torch.cuda.empty_cache()
+
+    # e. query-side fine-tuning over phase 7's OPQ96 index (device refine)
+    index_name = f"start/{IVF_CLUSTERS}_flat_OPQ96"
+    out_dir = os.path.join(root, "qsft")
+    with timed_steps(query, "make_query_train_step") as times:
+        t0 = start()
+        hist = train_query.main(
+            ["--load_dir", enc, "--dump_dir", dump, "--index_name",
+             index_name, "--train_file", qa_path, "--dev_file", qa_path,
+             "--per_device_train_batch_size", str(QSFT_BATCH),
+             "--qsft_top_k", str(QSFT_TOP_K), "--qsft_epochs", "1",
+             "--label_strat", "phrase,doc",
+             "--max_query_length", str(MAX_QUERY_LENGTH), "--output_dir",
+             out_dir], device=DEVICE)
+    steps, skipped = hist["steps"][0], hist["skipped"][0]
+    n_batches = -(-OFFLINE_QUESTIONS // QSFT_BATCH)
+    dev_batches = -(-OFFLINE_QUESTIONS // 64)  # DensePhrases.evaluate's
+    # per batch: the searcher's two query towers and one OPQ96 scan; per
+    # step the two towers forward, their remat recomputes and backward;
+    # the dev eval's towers and scans
+    wall, peak = finish("e query_ft", t0, {
+        "A": 2 * layers * (n_batches + dev_batches) + 4 * layers * steps,
+        "B": 2 * layers * steps, "D": n_batches + dev_batches})
+    report("query_ft", times, wall, peak, batch=QSFT_BATCH, top_k=QSFT_TOP_K,
+           batches=n_batches, skipped=skipped, loss=hist["loss"],
+           top1=hist["top1"], dev_em=hist["dev_em"])
+    if steps + skipped != n_batches or not steps or len(hist["dev_em"]) != 1 \
+            or not np.isfinite(hist["loss"]).all():
+        raise AssertionError(f"train_query: {hist}")
+    trained, cfg2, tok2 = load_encoder(out_dir, device=DEVICE)
+    source, _, _ = load_encoder(enc, device=DEVICE)
+    with open(qa_path) as f:
+        questions = [r["question"] for r in json.load(f)["data"]]
+    mips = MIPS(PhraseStore.load(os.path.join(dump, "phrase")),
+                index=IVFIndex.load(os.path.join(dump, index_name),
+                                    device=DEVICE))
+    answers = DensePhrases(trained, cfg2, tok2, mips,
+                           max_query_length=MAX_QUERY_LENGTH).search(
+        questions[:4], top_k=5)
+    moved = not torch.equal(trained.query_start.layers[0].q_w,
+                            source.query_start.layers[0].q_w)
+    log("9 trainers", part="e query_ft", served=repr(answers[0][:2]),
+        query_towers_moved=moved,
+        phrase_tower_kept=same_params(trained.phrase, source.phrase))
+    if not all(answers) or not moved or not same_params(trained.phrase,
+                                                        source.phrase):
+        raise AssertionError("the query-FT encoder does not serve")
+    del trained, mips
+
+    # f. phase 7's encoder as a pytorch_model.bin (old prefixes, bert level)
+    hf_dir = os.path.join(root, "hf")
+    os.makedirs(hf_dir)
+    torch.save(state_dict_from_encoder(source, spelling=1, bert_level=True),
+               os.path.join(hf_dir, "pytorch_model.bin"))
+    for name in ("config.json", "vocab.txt"):
+        shutil.copy(os.path.join(enc, name), hf_dir)
+    imported, _, _ = load_encoder(hf_dir, device=DEVICE)
+    feats = convert_questions_to_features(questions[:QUERY_BATCH], tok,
+                                          MAX_QUERY_LENGTH)
+    ids, am, tt = (torch.as_tensor(np.stack([getattr(f, k) for f in feats]),
+                                   device=DEVICE)
+                   for k in ("input_ids", "attention_mask", "token_type_ids"))
+    t0 = start()
+    want_q = embed_query(source, ids, am, tt, compute_dtype=torch.float32)
+    got_q = embed_query(imported, ids, am, tt, compute_dtype=torch.float32)
+    finish("f hf_import", t0, {"A": 4 * layers, "B": 0, "D": 0})
+    err = max(rel_err(g, w) for g, w in zip(got_q, want_q))
+    again = embed_query(source, ids, am, tt, compute_dtype=torch.float32)
+    log("9 trainers", part="f hf_import",
+        bin_bytes=os.path.getsize(os.path.join(hf_dir, "pytorch_model.bin")),
+        weights_equal=same_params(imported, source), query_rel_err=err,
+        source_vs_itself=max(rel_err(a, w) for a, w in zip(again, want_q)),
+        tol=HF_QUERY_RTOL)
+    if not same_params(imported, source) or err > HF_QUERY_RTOL:
+        raise AssertionError("pytorch_model.bin import differs from the source")
+    del imported, source
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
@@ -1667,6 +2047,9 @@ def main():
     # ---- 8. scale (g's path: A and C counters from zero)
     scale_launches = phase_scale(tmp, config)
 
+    # ---- 9. trainers (A, B and D counters from zero before each part)
+    trainer_launches = phase_trainers(tmp, config, tok, docs, smi)
+
     def timing(row, *rows):
         """The line's numbers for one kernel from its headline row; every
         row's numbers beside them."""
@@ -1687,18 +2070,22 @@ def main():
         "source": "densephrases_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "densephrases_tpu/models/attention.py:44",
         "launches": (main_path_launches + train_launches["A"]
-                     + offline_launches["A"] + scale_launches["A"]),
+                     + offline_launches["A"] + scale_launches["A"]
+                     + trainer_launches["A"]),
         "launches_by_path": {"dump_serve": main_path_launches,
                              "train": train_launches["A"],
                              "offline": offline_launches["A"],
-                             "scale": scale_launches["A"]},
+                             "scale": scale_launches["A"],
+                             "trainers": trainer_launches["A"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         **timing(serve_row, *bf16(kernel_rows)),
         "at": "B=64 H=12 L=32 D=64 bf16"}, {
         "name": "attention_bwd", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "densephrases_tpu/models/attention.py:94",
-        "launches": train_launches["B"],
+        "launches": train_launches["B"] + trainer_launches["B"],
+        "launches_by_path": {"train": train_launches["B"],
+                             "trainers": trainer_launches["B"]},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         **timing(bwd_row, *bf16(bwd_rows)),
         "at": "B=12 H=12 L=384 D=64 bf16"}, {
@@ -1718,9 +2105,11 @@ def main():
         "name": "pq_pack_score", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/pq_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:343",
-        "launches": ivf_launches["D"] + offline_launches["D"],
+        "launches": (ivf_launches["D"] + offline_launches["D"]
+                     + trainer_launches["D"]),
         "launches_by_path": {"ivf": ivf_launches["D"],
-                             "offline": offline_launches["D"]},
+                             "offline": offline_launches["D"],
+                             "trainers": trainer_launches["D"]},
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["D"]),
         **timing(ivf_rows["D"][0], *ivf_rows["D"]),
         "edge_rel_err": ivf_edge_err["D"],

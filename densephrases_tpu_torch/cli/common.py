@@ -2,9 +2,11 @@
 
 The counterpart of ``densephrases_tpu/cli/common.py`` with an explicit
 device. A save directory holds ``config.json``, ``vocab.txt`` and
-``params/step_0`` in the port's checkpoint format (``utils/checkpoint.py``).
-Not ported: the ``pytorch_model.bin`` fallback (``hf_import``) and reading
-the reference's orbax saves.
+``params/step_0`` in the port's checkpoint format (``utils/checkpoint.py``);
+``load_encoder`` also reads a directory that holds a torch
+``pytorch_model.bin`` (HF / the reference's released DensePhrases keys,
+``models/hf_import.py``) instead of ``params/``. Not ported: reading the
+reference's orbax saves.
 """
 
 from __future__ import annotations
@@ -69,11 +71,18 @@ def load_encoder(load_dir: str = "", draft: bool = False, seed: int = 42,
         tokenizer = WordPieceTokenizer.from_vocab_file(
             os.path.join(load_dir, "vocab.txt"))
         ckpt_dir = os.path.join(load_dir, "params")
-        if not os.path.isdir(ckpt_dir):
-            raise NotImplementedError(
-                f"no params/ under {load_dir}: importing pytorch_model.bin "
-                f"(hf_import) is not ported")
-        params = restore_checkpoint(ckpt_dir, EncoderParams(config).to(device))
+        if os.path.isdir(ckpt_dir):
+            params = restore_checkpoint(ckpt_dir,
+                                        EncoderParams(config).to(device))
+        else:
+            # torch checkpoint (HF / DensePhrases released weights)
+            from densephrases_tpu_torch.models.from_jax import encoder_from_jax
+            from densephrases_tpu_torch.models.hf_import import (
+                load_encoder_from_torch)
+
+            tree = load_encoder_from_torch(
+                os.path.join(load_dir, "pytorch_model.bin"), config)
+            params = encoder_from_jax(tree, config, device=device)
         return params, config, tokenizer
     config = BertConfig.tiny() if draft else BertConfig()
     logger.warning("no load_dir: fresh random init (%s)",

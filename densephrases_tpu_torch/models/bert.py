@@ -141,12 +141,15 @@ class BertLayer(nn.Module):
         self.ffn_ln_scale, self.ffn_ln_bias = _param(h), _param(h)
 
     def forward(self, x, mask, config: BertConfig, attn_impl: str,
-                compute_dtype: torch.dtype, dropout_seed: Optional[int] = None):
+                compute_dtype: torch.dtype, dropout_seed=None):
         """dropout_seed: None for no dropout; else the seed of this layer's
-        two masks (attention-out, then FFN-out)."""
+        two masks (attention-out, then FFN-out), or the two masks' uint8
+        bits themselves as a [2, B, L, H] tensor."""
         b, l, _ = x.shape
         rate = config.hidden_dropout_prob
-        if dropout_seed is not None:
+        if torch.is_tensor(dropout_seed):
+            bits = dropout_seed
+        elif dropout_seed is not None:
             bits = dropout_bits((2, b, l, config.hidden_size), dropout_seed,
                                 x.device)
         nh, hd = config.num_attention_heads, config.head_dim
@@ -221,15 +224,17 @@ class BertModel(nn.Module):
                 token_type_ids: Optional[torch.Tensor] = None, *,
                 attn_impl: str = "auto",
                 compute_dtype: torch.dtype = torch.bfloat16,
-                dropout: Optional[torch.Generator] = None,
-                remat: str = "none"):
+                dropout=None, remat: str = "none"):
         """input_ids, attention_mask (1 = real token), token_type_ids:
         [B, L] on the module's device. Returns the sequence output
         [B, L, H] in fp32.
 
         dropout: None (or ``hidden_dropout_prob`` 0) for the deterministic
         forward; else a CPU generator that this call draws its seeds from,
-        one for the embedding dropout and then one per layer.
+        one for the embedding dropout and then one per layer; or the masks'
+        uint8 bits themselves, a pair (embedding bits [B, L, H], layer bits
+        [num_hidden_layers, 2, B, L, H]), as the reference draws them from
+        its key splits (the tests feed those).
         remat: "full" recomputes each layer in the backward, "none" does
         not; "dots" (keep the products, recompute the rest) is not ported."""
         cfg = self.config
@@ -251,9 +256,13 @@ class BertModel(nn.Module):
         x = _layer_norm(x, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
         seeds = [None] * len(self.layers)
         if dropout is not None and cfg.hidden_dropout_prob > 0:
-            x = dropout_from_bits(x, cfg.hidden_dropout_prob, dropout_bits(
-                x.shape, draw_seed(dropout), x.device))
-            seeds = [draw_seed(dropout) for _ in self.layers]
+            if isinstance(dropout, torch.Generator):
+                emb_bits = dropout_bits(x.shape, draw_seed(dropout), x.device)
+                seeds = [draw_seed(dropout) for _ in self.layers]
+            else:
+                emb_bits, layer_bits = dropout
+                seeds = list(layer_bits.unbind(0))
+            x = dropout_from_bits(x, cfg.hidden_dropout_prob, emb_bits)
         x = x.to(compute_dtype)
         mask = attention_mask.to(torch.float32)
         recompute = remat == "full" and torch.is_grad_enabled()

@@ -16,7 +16,10 @@ The counterpart of ``densephrases_tpu/models/encoder.py``:
   passage CE, KL distillation from the teacher, in-batch / pre-batch /
   hard-negative CE and the filter BCE, with gradients. Cross-device
   negatives (``axis_name``) are not ported;
-- ``init_pre_batch`` / ``pre_batch_update``: the pre-batch ring buffer.
+- ``init_pre_batch`` / ``pre_batch_update``: the pre-batch ring buffer;
+- ``query_loss``: the query-side fine-tuning MML objective
+  (encoder.py:313-370) over frozen candidate vectors, with gradients into
+  the query towers.
 """
 
 from __future__ import annotations
@@ -317,6 +320,70 @@ def pre_batch_update(pre_batch, gold_start, gold_end):
     new_start[idx] = gold_start.detach()
     new_end[idx] = gold_end.detach()
     return {"start": new_start, "end": new_end, "count": pre_batch["count"] + 1}
+
+
+def _mml(logits, target_mask):
+    """-log(sum of the softmax probabilities at the targets), the sum
+    clipped to [MIN_PROB, 1] (encoder.py:313-317)."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    p = (probs * target_mask).sum(-1)
+    return -torch.log(p.clamp(MIN_PROB, 1.0))
+
+
+def _masked_mean(x, m):
+    mf = m.to(torch.float32)
+    return (x * mf).sum() / mf.sum().clamp(min=1.0)
+
+
+def query_loss(params: EncoderParams, config: BertConfig, query_input_ids,
+               query_attention_mask, start_vecs, end_vecs, targets, p_targets,
+               cand_mask=None, query_token_type_ids=None,
+               deterministic: bool = False, *, dropout=None,
+               attn_impl: str = "auto", remat: str = "full",
+               compute_dtype: torch.dtype = torch.bfloat16):
+    """The query-side fine-tuning objective (ref: densephrases_tpu
+    query_loss, encoder.py:320-370), with gradients into the query towers.
+
+    start_vecs / end_vecs: [B, C, H] frozen phrase vectors from the index;
+    targets / p_targets: [B, C] phrase-level / doc-level gold masks;
+    cand_mask: [B, C], False for padded candidates (their logits become
+    -1e9). The phrase term (joint + start + end MML over the rows with a
+    phrase target) counts only when some row has one, the doc term (start +
+    end MML with the phrase targets suppressed by -1e9) only when some row
+    has a doc target. dropout: as in ``rc_loss``.
+
+    Returns (loss, top1 [B] bool): whether the argmax candidate (the first
+    on ties) is a phrase target."""
+    gen = None if deterministic else dropout
+    query_start, query_end = _query(
+        params, query_input_ids, query_attention_mask, query_token_type_ids,
+        dropout=gen, attn_impl=attn_impl, remat=remat,
+        compute_dtype=compute_dtype)
+    start_logits = torch.einsum("bh,bch->bc", query_start, start_vecs)
+    end_logits = torch.einsum("bh,bch->bc", query_end, end_vecs)
+    if cand_mask is not None:
+        start_logits = torch.where(cand_mask, start_logits, NEG_INF)
+        end_logits = torch.where(cand_mask, end_logits, NEG_INF)
+    logits = start_logits + end_logits
+
+    targets = targets.to(torch.float32)
+    p_targets = p_targets.to(torch.float32)
+    has_t = targets.sum(-1) > 0
+    has_pt = p_targets.sum(-1) > 0
+
+    # phrase term: joint + start-only + end-only MML (ref: encoder.py:391-407)
+    loss_t = (_masked_mean(_mml(logits, targets), has_t)
+              + _masked_mean(_mml(start_logits, targets), has_t)
+              + _masked_mean(_mml(end_logits, targets), has_t))
+    # doc term with the phrase targets suppressed (ref: encoder.py:409-425)
+    sup = torch.where(targets > 0, NEG_INF, 0.0)
+    loss_pt = (_masked_mean(_mml(start_logits + sup, p_targets), has_pt)
+               + _masked_mean(_mml(end_logits + sup, p_targets), has_pt))
+    loss = (has_t.any().to(torch.float32) * loss_t
+            + has_pt.any().to(torch.float32) * loss_pt)
+
+    top1 = torch.gather(targets, 1, logits.argmax(-1)[:, None])[:, 0] > 0
+    return loss, top1
 
 
 class PhraseEncoder:

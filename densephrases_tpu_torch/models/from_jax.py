@@ -10,7 +10,8 @@ no jax. The tree's layout:
 - ``layers/<name>`` stacked on a leading [num_layers] axis → unstacked
   into ``BertModel.layers[i].<name>``;
 - ``filter/{w,b}`` → ``EncoderParams.filter.{w,b}``;
-- with a teacher, ``cross`` (a tower) and ``qa_outputs/{w,b}``.
+- with a teacher, ``cross`` (a tower) and ``qa_outputs/{w,b}``; a
+  teacher's own tree (``cross``, ``qa_outputs``) → ``CrossParams``.
 
 Weight matrices stay ``[in, out]``: the port multiplies ``x @ w`` as the
 reference does, so nothing is transposed. ``encoder_to_jax`` goes back: the
@@ -34,6 +35,9 @@ from densephrases_tpu_torch.utils.device import resolve_device
 _EMBED = {"word": "word_emb", "pos": "pos_emb", "type": "type_emb",
           "ln_scale": "ln_scale", "ln_bias": "ln_bias"}
 _EMBED_BACK = {v: k for k, v in _EMBED.items()}
+# the port's module names that hold a ``BertModel``: the encoder's towers,
+# the teacher's and the MLM backbone
+BERT_TOWERS = TOWERS + ("cross", "bert")
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -83,12 +87,27 @@ def encoder_from_jax(tree: Mapping, config: BertConfig, device="cuda",
     return params.to(device=resolve_device(device), dtype=dtype)
 
 
+def cross_from_jax(tree: Mapping, config: BertConfig, device="cuda"
+                   ) -> torch.nn.Module:
+    """``init_cross_params``-style tree (``cross``, ``qa_outputs``) →
+    ``CrossParams``."""
+    from densephrases_tpu_torch.train.cross_encoder import CrossParams
+
+    params = CrossParams(config)
+    _load_bert(params.cross, tree["cross"], "cross")
+    for leaf in ("w", "b"):
+        _copy(getattr(params.qa_outputs, leaf), tree["qa_outputs"][leaf],
+              f"qa_outputs/{leaf}")
+    return params.to(resolve_device(device))
+
+
 def reference_path(name: str) -> str:
     """A port parameter name → its path in the reference's tree:
     ``phrase.word_emb`` → ``phrase/embed/word``, ``phrase.layers.3.q_w`` →
-    ``phrase/layers/q_w`` (the stacked leaf), ``filter.w`` → ``filter/w``."""
+    ``phrase/layers/q_w`` (the stacked leaf), ``filter.w`` → ``filter/w``,
+    ``mlm.ln_scale`` → ``mlm/ln_scale`` (a head's leaf, not a tower's)."""
     parts = name.split(".")
-    if len(parts) == 2 and parts[1] in _EMBED_BACK:
+    if len(parts) == 2 and parts[0] in BERT_TOWERS and parts[1] in _EMBED_BACK:
         return f"{parts[0]}/embed/{_EMBED_BACK[parts[1]]}"
     if len(parts) == 4 and parts[1] == "layers":
         return f"{parts[0]}/layers/{parts[3]}"

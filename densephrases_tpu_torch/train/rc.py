@@ -9,8 +9,9 @@ writes the same update out in torch, step for step:
   ``max_norm / norm`` only when ``norm >= max_norm``;
 - Adam's eps is added outside the square root, after bias correction;
 - weight decay is added to the Adam direction (decoupled), on the
-  parameters that the reference's mask selects by path name
-  (train/rc.py:57-63), the port's names mapped to the reference's;
+  parameters that a predicate over the reference's path names selects:
+  the RC mask (train/rc.py:57-63) by default, the port's names mapped to
+  the reference's;
 - the learning rate is the schedule at the pre-increment count, so with a
   warmup the first update uses lr(0) = 0;
 - frozen word embeddings and the teacher (``cross``, ``qa_outputs``) get
@@ -20,6 +21,11 @@ writes the same update out in torch, step for step:
 The step updates the parameters and the optimizer state in place (torch
 modules are mutable) and returns the state with the new step count and
 pre-batch ring. Data-parallel training over a mesh is not ported.
+
+``AdamW`` also expresses the other trainers' optimizers: plain
+``optax.adamw`` (no clipping, decay on every parameter) for query-side
+fine-tuning and the cross-encoder, whose schedule is
+``warmup_linear_decay_schedule``, and the MLM chain (train/mlm.py).
 """
 
 from __future__ import annotations
@@ -63,6 +69,25 @@ def linear_warmup_schedule(lr: float, warmup_steps: int, total_steps: int):
         else decay(count - warmup_steps)
 
 
+def warmup_linear_decay_schedule(lr: float, warmup_steps: int,
+                                 total_steps: int):
+    """Linear warmup to ``lr`` over ``warmup_steps``, then a linear decay to 0
+    over ``total_steps`` counted from the warmup's end (optax.join_schedules
+    of linear_schedule(0, lr, warmup) and linear_schedule(lr, 0, total)):
+    the query-side and cross-encoder schedules (train/query.py:215-221,
+    train/cross_encoder.py:102-106). The caller clamps the warmup, as
+    there."""
+    warm = _linear(0.0, lr, warmup_steps)
+    decay = _linear(lr, 0.0, total_steps)
+    return lambda count: warm(count) if count < warmup_steps \
+        else decay(count - warmup_steps)
+
+
+def decay_all(path: str) -> bool:
+    """Plain ``optax.adamw``: weight decay on every parameter."""
+    return True
+
+
 def is_decayed(path: str) -> bool:
     """The reference's decay mask on a path of its tree (train/rc.py:57-63):
     no decay on biases and layer norms."""
@@ -72,19 +97,24 @@ def is_decayed(path: str) -> bool:
 
 
 class AdamW:
-    """optax.chain(clip_by_global_norm, adamw) over named fp32 tensors.
+    """optax.chain(clip_by_global_norm, adamw) over named fp32 tensors, or
+    ``adamw`` alone when ``max_grad_norm`` is None.
 
-    ``init`` makes the state; ``update`` applies one step in place to the
-    parameters it is given gradients for. Parameters without a gradient
-    keep their moments and are not touched."""
+    ``decayed`` picks the parameters that get weight decay by their path in
+    the reference's tree (``reference_path``). ``init`` makes the state;
+    ``update`` applies one step in place to the parameters it is given
+    gradients for. Parameters without a gradient keep their moments and are
+    not touched."""
 
     def __init__(self, schedule, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.01,
-                 max_grad_norm: float = 1.0):
+                 max_grad_norm: Optional[float] = 1.0,
+                 decayed: Callable[[str], bool] = is_decayed):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
+        self.decayed = decayed
 
     def init(self, named_params: Dict[str, torch.Tensor]) -> dict:
         zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)
@@ -98,9 +128,10 @@ class AdamW:
         names = list(grads)
         g = [grads[n].to(torch.float32) for n in names]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
-        factor = torch.where(norm < self.max_grad_norm, 1.0,
-                             self.max_grad_norm / norm)
-        g = torch._foreach_mul(g, factor)
+        if self.max_grad_norm is not None:
+            factor = torch.where(norm < self.max_grad_norm, 1.0,
+                                 self.max_grad_norm / norm)
+            g = torch._foreach_mul(g, factor)
         mu = [state["mu"][n] for n in names]
         nu = [state["nu"][n] for n in names]
         torch._foreach_mul_(mu, self.b1)
@@ -118,7 +149,8 @@ class AdamW:
         upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, denom)
         p = [params[n] for n in names]
-        decay = [i for i, n in enumerate(names) if is_decayed(reference_path(n))]
+        decay = [i for i, n in enumerate(names)
+                 if self.decayed(reference_path(n))]
         if self.weight_decay and decay:
             torch._foreach_add_([upd[i] for i in decay], [p[i] for i in decay],
                                 alpha=self.weight_decay)

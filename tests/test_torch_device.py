@@ -17,6 +17,9 @@ from densephrases_tpu_torch.cli import (
     common,
     eval_phrase_retrieval,
     generate_phrase_vecs,
+    train_cross_encoder,
+    train_mlm,
+    train_query,
     train_rc,
 )
 from densephrases_tpu_torch.index import ivf, search
@@ -26,7 +29,7 @@ from densephrases_tpu_torch.index.tiered import TieredFlatIndex, TieredIVF
 from densephrases_tpu_torch.models import encoder, from_jax
 from densephrases_tpu_torch.models.bert import BertConfig
 from densephrases_tpu_torch.ops import kmeans, opq, pq
-from densephrases_tpu_torch.train import cross_encoder
+from densephrases_tpu_torch.train import cross_encoder, mlm
 
 ENTRY_POINTS = {
     "FlatIndex.__init__": FlatIndex.__init__,
@@ -46,6 +49,12 @@ ENTRY_POINTS = {
     "generate_phrase_vecs.main": generate_phrase_vecs.main,
     "build_phrase_index.main": build_phrase_index.main,
     "eval_phrase_retrieval.main": eval_phrase_retrieval.main,
+    "init_mlm_params": mlm.init_mlm_params,
+    "pretrain_mlm": mlm.pretrain_mlm,
+    "train_cross_encoder": cross_encoder.train_cross_encoder,
+    "train_query.main": train_query.main,
+    "train_cross_encoder.main": train_cross_encoder.main,
+    "train_mlm.main": train_mlm.main,
 }
 
 HELPERS = {
@@ -97,7 +106,9 @@ def _no_gpu(monkeypatch):
 
 @pytest.mark.parametrize("call", ["init_encoder_params", "FlatIndex",
                                   "init_cross_params", "load_encoder",
-                                  "TieredIVF.load", "TieredFlatIndex"])
+                                  "TieredIVF.load", "TieredFlatIndex",
+                                  "init_mlm_params", "pretrain_mlm",
+                                  "train_cross_encoder"])
 def test_no_device_without_a_gpu_raises(monkeypatch, call, tmp_path):
     _no_gpu(monkeypatch)
     cfg = BertConfig.tiny()
@@ -116,6 +127,12 @@ def test_no_device_without_a_gpu_raises(monkeypatch, call, tmp_path):
             TieredFlatIndex(np.zeros((8, 4), np.int8))
         elif call == "init_cross_params":
             cross_encoder.init_cross_params(cfg)
+        elif call == "init_mlm_params":
+            mlm.init_mlm_params(cfg)
+        elif call == "pretrain_mlm":
+            mlm.pretrain_mlm(["w"], None, cfg, steps=1)
+        elif call == "train_cross_encoder":
+            cross_encoder.train_cross_encoder(cfg, [])
         else:
             common.load_encoder(draft=True)
 
@@ -132,7 +149,8 @@ def test_mips_without_index_or_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("driver", [generate_phrase_vecs, build_phrase_index,
-                                    eval_phrase_retrieval],
+                                    eval_phrase_retrieval, train_query,
+                                    train_cross_encoder, train_mlm],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_driver_without_a_gpu_raises(monkeypatch, driver):
     # the device is resolved before any flag or file is read

@@ -29,7 +29,16 @@ from densephrases_tpu.model import DensePhrases as JaxDensePhrases
 from densephrases_tpu.models import encoder as jax_encoder
 from densephrases_tpu.models.encoder import init_encoder_params as jax_init
 from densephrases_tpu.ops import kmeans as jax_kmeans
+from densephrases_tpu.data import lazy as jax_lazy
+from densephrases_tpu.eval import kilt as jax_kilt
+from densephrases_tpu.eval import reader as jax_reader
+from densephrases_tpu.models import hf_import as jax_hf
+from densephrases_tpu.preprocess import datasets as jax_datasets
+from densephrases_tpu.preprocess import doc_db as jax_doc_db
+from densephrases_tpu.preprocess import wiki as jax_wiki
 from densephrases_tpu.train import cross_encoder as jax_cross
+from densephrases_tpu.train import mlm as jax_mlm
+from densephrases_tpu.train import query as jax_query
 from densephrases_tpu_torch.data import features as tfeat
 from densephrases_tpu_torch.data.tokenization import SPECIAL_TOKENS, WordPieceTokenizer
 from densephrases_tpu_torch.data.truecase import TrueCaser
@@ -45,7 +54,16 @@ from densephrases_tpu_torch.models.bert import BertConfig
 from densephrases_tpu_torch.models.from_jax import encoder_from_jax
 from densephrases_tpu_torch.ops import kmeans as port_kmeans
 from densephrases_tpu_torch.serve.fused import FusedServer
+from densephrases_tpu_torch.data import lazy as port_lazy
+from densephrases_tpu_torch.eval import kilt as port_kilt
+from densephrases_tpu_torch.eval import reader as port_reader
+from densephrases_tpu_torch.models import hf_import as port_hf
+from densephrases_tpu_torch.preprocess import datasets as port_datasets
+from densephrases_tpu_torch.preprocess import doc_db as port_doc_db
+from densephrases_tpu_torch.preprocess import wiki as port_wiki
 from densephrases_tpu_torch.train import cross_encoder as port_cross
+from densephrases_tpu_torch.train import mlm as port_mlm
+from densephrases_tpu_torch.train import query as port_query
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = [f"w{i}" for i in range(200)] + ["paris", "river", "école"]
@@ -229,7 +247,26 @@ def test_import_leaves_jax_out():
             "densephrases_tpu_torch.index.ivf, "
             "densephrases_tpu_torch.ops.ivf_pack, "
             "densephrases_tpu_torch.ops.kmeans, densephrases_tpu_torch.ops.pq, "
-            "densephrases_tpu_torch.ops.opq\n"
+            "densephrases_tpu_torch.ops.opq, "
+            "densephrases_tpu_torch.train.query, "
+            "densephrases_tpu_torch.train.cross_encoder, "
+            "densephrases_tpu_torch.train.mlm, "
+            "densephrases_tpu_torch.eval.reader, "
+            "densephrases_tpu_torch.eval.kilt, "
+            "densephrases_tpu_torch.models.hf_import, "
+            "densephrases_tpu_torch.cli.train_query, "
+            "densephrases_tpu_torch.cli.train_cross_encoder, "
+            "densephrases_tpu_torch.cli.train_mlm, "
+            "densephrases_tpu_torch.cli.preprocess, "
+            "densephrases_tpu_torch.preprocess.doc_db, "
+            "densephrases_tpu_torch.preprocess.wiki, "
+            "densephrases_tpu_torch.preprocess.datasets, "
+            "densephrases_tpu_torch.preprocess.offline_corpus, "
+            "densephrases_tpu_torch.tools.store_tools, "
+            "densephrases_tpu_torch.data.lazy\n"
+            "from densephrases_tpu_torch.preprocess.offline_corpus import "
+            "package_roots\n"
+            "package_roots()\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'densephrases_tpu' or m.startswith('densephrases_tpu.')]\n"
             "assert not bad, bad\n")
@@ -353,6 +390,34 @@ def _params(fn):
                                              p.POSITIONAL_OR_KEYWORD)]
 
 
+# the trainers, the reader, the checkpoint import and the host tools:
+# (port module, reference module, public functions)
+SLICE_8 = [
+    (port_encoder, jax_encoder, ["query_loss"]),
+    (port_query, jax_query, ["annotate_candidates", "annotate_candidate_cols",
+                             "make_query_train_step", "train_query_encoder"]),
+    (port_cross, jax_cross, ["cross_positions", "make_cross_train_step",
+                             "train_cross_encoder"]),
+    (port_reader, jax_reader, ["build_cq_inputs", "read_passages"]),
+    (port_mlm, jax_mlm, ["make_mlm_optimizer", "make_mlm_step", "pack_chunks",
+                         "pretrain_mlm"]),
+    (port_hf, jax_hf, ["bert_params_from_state_dict",
+                       "encoder_params_from_state_dict",
+                       "load_encoder_from_torch"]),
+    (port_kilt, jax_kilt, ["evaluate_kilt", "rprecision", "recall_at_k",
+                           "results_to_kilt_predictions", "load_kilt_data"]),
+    (port_doc_db, jax_doc_db, ["build_db"]),
+    (port_wiki, jax_wiki, ["keep_article", "split_paragraphs",
+                           "db_to_squad_docs", "concat_small_docs",
+                           "create_openqa"]),
+    (port_datasets, jax_datasets, ["nq_to_squad", "merge_openqa",
+                                   "filter_noans", "filter_wiki",
+                                   "tsv_to_corpus", "stat_entities"]),
+    (port_lazy.LazyRCDataset, jax_lazy.LazyRCDataset, ["__init__"]),
+    (port_lazy, jax_lazy, ["read_qa_jsonl"]),
+]
+
+
 @pytest.mark.parametrize("port_fn,ref_fn", [
     (MIPS.search, JaxMIPS.search),
     (MIPS.search_dense, JaxMIPS.search_dense),
@@ -369,11 +434,15 @@ def _params(fn):
     (IVFIndex.build_coarse, JaxIVFIndex.build_coarse),
     (IVFIndex.load, JaxIVFIndex.load),
     (port_kmeans.kmeans, jax_kmeans.kmeans),
+    *[(getattr(port, name), getattr(ref, name))
+      for port, ref, names in SLICE_8 for name in names],
 ], ids=["MIPS.search", "MIPS.search_dense", "FlatIndex.search",
         "IVFIndex.search", "IVFIndex.search_union", "DensePhrases.search",
         "DensePhrases.__init__", "MIPS.__init__", "MIPS.search_phrase",
         "FlatIndex.__init__", "IVFIndex.__init__", "IVFIndex.build",
-        "IVFIndex.build_coarse", "IVFIndex.load", "kmeans"])
+        "IVFIndex.build_coarse", "IVFIndex.load", "kmeans",
+        *[f"{port.__name__.rsplit('.', 1)[-1]}.{name}"
+          for port, ref, names in SLICE_8 for name in names]])
 def test_signatures_follow_reference(port_fn, ref_fn):
     # positional arguments mean the same in both packages: the port's
     # positional parameters are the reference's, in order (the port may
@@ -387,8 +456,15 @@ def test_signatures_follow_reference(port_fn, ref_fn):
 # reference's order fails instead of being misread: the init functions put
 # ``config`` first and take a torch.Generator where the reference takes a
 # JAX key first; the embed functions take no ``config`` (the towers carry
-# it).
+# it); ``encoder_params_from_backbone`` draws the filter head from a
+# generator where the reference takes a seed for ``PRNGKey``, and
+# ``mlm_loss`` takes the corruption draws as tensors where the reference
+# takes the key it draws them from.
 DELIBERATE = {
+    "init_mlm_params": (port_mlm.init_mlm_params, jax_mlm.init_mlm_params),
+    "encoder_params_from_backbone": (port_mlm.encoder_params_from_backbone,
+                                     jax_mlm.encoder_params_from_backbone),
+    "mlm_loss": (port_mlm.mlm_loss, jax_mlm.mlm_loss),
     "init_encoder_params": (port_encoder.init_encoder_params,
                             jax_encoder.init_encoder_params),
     "init_cross_params": (port_cross.init_cross_params,
@@ -405,6 +481,12 @@ def test_deliberate_signature_exceptions(name):
     if name.startswith("init_"):
         assert ref[:2] == ["rng", "config"]
         assert port[:2] == ["config", "generator"]
+    elif name == "encoder_params_from_backbone":
+        assert ref == ["backbone", "config", "seed"]
+        assert port == ["backbone", "config", "generator"]
+    elif name == "mlm_loss":
+        assert ref[:4] == port[:4] and ref[4:] == ["rng"]
+        assert port[4:] == ["draws"]
     else:
         assert ref[:2] == ["params", "config"] and "config" not in port
         assert port[:2] == ["params", "input_ids"]
