@@ -65,6 +65,18 @@ written kernel on that path against its plain PyTorch version:
                  with the device refine, the output served; f. phase 7's
                  encoder as a ``pytorch_model.bin`` through ``load_encoder``.
                  Each trainer's step ms, steps/s and peak device memory
+  10. scale_out  the multi-device path on one card: a. NCCL at one rank (a
+                 mesh ``FlatIndex`` and a DP train step, bit for bit the
+                 non-mesh path's); b. 4 gloo ranks sharing the card: phase
+                 8's corpus on a mesh ``FlatIndex`` and ``MeshShardedIVF``
+                 SQ8 / OPQ96 at 4 x 4,096 lists, against ``FlatIndex`` and
+                 ``ShardedIVF`` in this process; c. 2 gloo ranks: ``MIPS(
+                 store, mesh=)`` over phase 3's store (four units, oracle),
+                 the first DP step against one process on the global batch
+                 of 24, a step under each remat mode, ``train_rc.main``
+                 (3 steps "full", a resume to 5 under "dots"); d. the
+                 parallel dump (2 workers) against phase 7's dump, byte for
+                 byte. NCCL refuses two ranks on one GPU, hence gloo there
 
 Kernel A's launch counter is zeroed right before phase 3 and read after
 phase 4's main-path work; kernels C and D's are zeroed right before phase 5
@@ -72,8 +84,10 @@ and read after it; kernels A and B's are zeroed again right before phase 6's
 ``train_rc.main`` and read right after it, and A, C and D's right before
 phase 7 and read at its end; A and C's right before phase 8's drivers
 (part g) and read after them; A, B and D's right before each part of phase
-9 and read right after it; phases 6, 7, 8 and 9 must equal the counts
-their paths imply. A kernel of a path that never launched fails the run.
+9 and read right after it; A-D's in this process and in every rank of
+phase 10 from its start to its end (the dump workers, separate driver
+processes, are not counted); phases 6-10 must equal the counts their paths
+imply. A kernel of a path that never launched fails the run.
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when there is no CUDA device. The second-last
 lines are a JSON object of per-kernel results and the card's
@@ -191,6 +205,8 @@ FULL_PROBE_RTOL = 1e-4
 # of this many questions whose answers are corpus phrases, evaluated in
 # batches of this many
 OFFLINE_FILES, OFFLINE_QUESTIONS, OFFLINE_EVAL_BATCH = 4, 128, 64
+# the drivers' dump window (phase 7, and phase 10's parallel dump)
+DUMP_SEQ = 512
 # decode mode ranks by the PQ codes alone (no int8 re-rank), so its top-1
 # span may differ from the device refine's; this floor only catches a
 # broken decode (random phrase vectors, many near-ties)
@@ -237,6 +253,31 @@ READER_SCORE_RTOL = 2e-2
 # (1.2e-6 of the largest on an H100, while the source against itself gives
 # 0; the log prints both)
 HF_QUERY_RTOL = 1e-5
+# phase 10: scale-out on one card. NCCL refuses two ranks on one GPU, so
+# the smoke runs NCCL at one rank and the multi-rank parts as gloo ranks
+# sharing cuda:0 (gloo stages CUDA tensors through the host): that is this
+# script's choice, never a fallback of the library. Serving: phase 8's
+# corpus over 4 ranks (~192 MiB of codes a rank) and MeshShardedIVF at 4 x
+# 4,096 lists (the build's iterations cut to SO_ITERS); MIPS over 2
+# ranks on phase 3's store; DP training over 2 ranks at the reference's
+# per-device shape (12 x L 384), a global batch of 24; the parallel dump
+# with 2 workers over phase 7's files
+SO_SERVE_RANKS, SO_TRAIN_RANKS, SO_DUMP_WORKERS = 4, 2, 2
+SO_LISTS, SO_NPROBES = 16384, (16, 256)
+SO_ITERS = dict(kmeans_iters=5, pq_iters=3, opq_iters=2)  # cut from 10, 6, 4
+SO_RANK_TIMEOUT = 600  # seconds for one spawn of the ranks
+SO_LR = 1e-4  # a constant lr: the first step moves the weights
+# the ranks' first DP step against one process on the global batch of 24,
+# bf16 towers either way: the same products in GEMMs of other row counts,
+# summed in other orders, and the loss averaged over 2 ranks. Measured on
+# an H100 80GB HBM3 at 700 W: loss 8.0e-8 relative, the unclipped gradient
+# norm 1.2e-5, each tower's Adam first moment 3.8e-5 in norm and cosine
+# 1 - 3.6e-7. The limits sit 10-40x above those; a gradient-scale fault (a
+# sum without the mean over ranks) moves the unclipped norm 2x, which
+# clipping hides from the first moment
+SO_LOSS_RTOL, SO_GRAD_NORM_RTOL = 1e-6, 5e-4
+SO_GRAD_COS, SO_NORM_RTOL = 1 - 1e-5, 5e-4
+SO_TOWERS = ("phrase", "query_start", "query_end", "filter")
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense rates at
 # 700 W): a kernel's bound is the larger of the bytes it must move over the
 # memory rate and its operations over the peak rate for their type (bf16
@@ -1106,7 +1147,8 @@ def phase_offline(tmp, params, config, tok, docs, store, flat_model, queries,
     t0 = time.perf_counter()
     dumped = generate_phrase_vecs.main(
         ["--load_dir", enc, "--data_dir", corpus, "--predict_file",
-         f"0:{OFFLINE_FILES}", "--dump_dir", dump, "--max_seq_length", "512"],
+         f"0:{OFFLINE_FILES}", "--dump_dir", dump, "--max_seq_length",
+         str(DUMP_SEQ)],
         device=DEVICE)
     dump_s = time.perf_counter() - t0
     want["A"] += -(-windows // 16) * layers
@@ -1403,6 +1445,7 @@ def phase_scale(tmp, config):
     q = ((centres[pick] + QUERY_NOISE * torch.randn(
         centres[pick].shape, generator=gen, device=DEVICE))
         / DEFAULT_SCALE).cpu().numpy()
+    np.save(os.path.join(root, "queries.npy"), q)  # phase 10 serves them
     flat_index, flat_bytes = device_bytes(lambda: FlatIndex(codes,
                                                             device=DEVICE))
     exact = flat_index.search(q, top_k=10)
@@ -1877,6 +1920,594 @@ def phase_trainers(tmp, config, tok, docs, smi):
     return totals
 
 
+# ------------------------------------------------------------- phase 10
+def train_step_launches(layers, remat="full", hard_negatives=True,
+                        teacher=True):
+    """Kernels A and B in one RC train step: A once a tower forward (the
+    phrase tower, the two query towers, the hard negatives through the
+    phrase tower) and again in its recompute under remat "full" or "dots"
+    (attention is no product under "dots"), plus the teacher's forward; B
+    once a tower backward."""
+    towers = 3 + int(hard_negatives)
+    recompute = towers if remat in ("full", "dots") else 0
+    return {"A": (towers + recompute + int(teacher)) * layers,
+            "B": towers * layers}
+
+
+def dp_batch(rng, vocab_size, rows):
+    """A seeded synthetic global train batch at the reference's shape
+    (L TRAIN_SEQ, queries TRAIN_QUERY, cross TRAIN_SEQ + TRAIN_QUERY), every
+    loss part's inputs: ragged masks, answer positions, teacher inputs and
+    a hard negative passage a row."""
+    ids = lambda *s: rng.integers(5, vocab_size, s).astype(np.int32)
+    am = np.ones((rows, TRAIN_SEQ), np.int32)
+    for i in range(rows):
+        am[i, TRAIN_SEQ - TRAIN_SEQ // 32 * (i % 8):] = 0
+    lc = TRAIN_SEQ + TRAIN_QUERY
+    gather = np.full((rows, TRAIN_SEQ), -1, np.int32)
+    gather[:, 0] = 0
+    gather[:, 2:] = np.arange(TRAIN_QUERY, lc - 2)[None, :]
+    start = rng.integers(1, TRAIN_SEQ // 2, rows).astype(np.int32)
+    return {
+        "input_ids": ids(rows, TRAIN_SEQ), "attention_mask": am,
+        "token_type_ids": np.zeros((rows, TRAIN_SEQ), np.int32),
+        "query_input_ids": ids(rows, TRAIN_QUERY),
+        "query_attention_mask": np.ones((rows, TRAIN_QUERY), np.int32),
+        "query_token_type_ids": np.zeros((rows, TRAIN_QUERY), np.int32),
+        "start_positions": start, "end_positions": start + 3,
+        "cross_input_ids": ids(rows, lc),
+        "cross_attention_mask": np.ones((rows, lc), np.int32),
+        "cross_token_type_ids": np.concatenate(
+            [np.zeros((rows, TRAIN_QUERY), np.int32),
+             np.ones((rows, TRAIN_SEQ), np.int32)], 1),
+        "teacher_gather": gather,
+        "neg_input_ids": ids(rows, TRAIN_SEQ),
+        "neg_attention_mask": am[::-1].copy(),
+    }
+
+
+def dp_summary(state, metrics):
+    """What the first DP step is held to: the loss, the gradient norm, and
+    per tower the norm and a few whole weight matrices of Adam's first
+    moment (the clipped gradient over 10; biases such as the key bias get
+    gradients of rounding noise by symmetry, so they are left out)."""
+    mu = state.opt_state["mu"]
+    last = len([n for n in mu if n.endswith("q_w")]) // 3 - 1
+    keep = [n for n in mu if n.endswith("_w") and n.startswith(
+        ("phrase.layers.0.", f"phrase.layers.{last}.",
+         f"query_start.layers.{last}.q_w", f"query_end.layers.{last}.ffn_out"))
+        ] + ["filter.w"]
+    norms = {t: float(torch.sqrt(sum(mu[n].double().square().sum()
+                                     for n in mu if n.split(".")[0] == t)))
+             for t in SO_TOWERS}
+    return {"loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "norms": norms,
+            "mu": {n: mu[n].float().cpu() for n in keep}}
+
+
+def so_serve(rank, world, tmp, device, kernels):
+    """Phase 10b, one of SO_SERVE_RANKS gloo ranks: phase 8's corpus on a
+    mesh ``FlatIndex``, then ``MeshShardedIVF.build`` SQ8 and OPQ96 (each
+    rank's shard saved for the one-process comparison) searched at each
+    nprobe; ms a batch of 128 and device bytes. The rank's launch formula:
+    one C (SQ8) or D (OPQ96) a search of its own shard, 7 searches an
+    nprobe (one, then ``host_ms``'s warm-up and 5 timed)."""
+    from densephrases_tpu_torch.index.flat import FlatIndex
+    from densephrases_tpu_torch.index.ivf import IVFConfig, IVFIndex
+    from densephrases_tpu_torch.index.sharded import MeshShardedIVF
+    from densephrases_tpu_torch.parallel import make_mesh
+    from densephrases_tpu_torch.parallel.multihost import broadcast_queries
+
+    inp = torch.load(os.path.join(tmp, "serve_in.pt"), weights_only=False)
+    mesh = make_mesh(axis="shard", devices=[device] * world)
+    codes = np.load(inp["corpus"], mmap_mode="r")
+    # each rank offers its own; every rank serves rank 0's
+    q = broadcast_queries(np.load(inp["queries"]) + rank)
+    out = {"queries": q, "want": {"A": 0, "B": 0, "C": 0, "D": 0}}
+    flat, out["flat_bytes"] = device_bytes(lambda: FlatIndex(codes, mesh=mesh))
+    out["flat"] = flat.search(q, top_k=10)
+    out["flat_ms"] = host_ms(lambda: flat.search(q, top_k=10))
+    del flat
+    for fq, kernel in (("SQ8", "C"), ("OPQ96", "D")):
+        t0 = time.perf_counter()
+        cfg = IVFConfig(num_clusters=inp["lists"], fine_quant=fq,
+                        **SO_ITERS)
+        msh = MeshShardedIVF.build(codes, cfg, mesh)
+        torch.cuda.synchronize()
+        out[fq, "build_s"] = time.perf_counter() - t0
+        out[fq, "bytes"] = sum(
+            t.numel() * t.element_size() for t in (
+                msh.centroids, msh.list_offsets, msh.codes, msh.row_perm,
+                msh.rotation, msh.pq_books, msh.refine_codes) if t is not None)
+        out[fq, "nlist"] = (msh.nlist_valid, int(msh.centroids.shape[0]))
+        host = lambda t: None if t is None else t.cpu().numpy()
+        nv = msh.nlist_valid
+        IVFIndex(msh.cfg, host(msh.centroids[:nv]), host(msh.row_perm),
+                 host(msh.list_offsets[:nv + 1]), host(msh.codes),
+                 rotation=host(msh.rotation), pq=msh.pq, offset=msh.offset,
+                 scale=msh.scale, n_total=msh.n_real,
+                 refine_codes=host(msh.refine_codes), device="cpu").save(
+            os.path.join(tmp, f"shard_{fq}_{rank}"))
+        k0 = kernels[kernel].launches
+        for nprobe in SO_NPROBES:
+            out[fq, nprobe] = msh.search(q, top_k=10, nprobe=nprobe)
+            out[fq, nprobe, "ms"] = host_ms(
+                lambda: msh.search(q, top_k=10, nprobe=nprobe))
+        out[fq, "launches"] = kernels[kernel].launches - k0
+        out["want"][kernel] += 7 * len(SO_NPROBES)
+        del msh
+    return out
+
+
+def so_train(rank, world, tmp, device, kernels):
+    """Phase 10c, one of SO_TRAIN_RANKS gloo ranks: ``MIPS(store, mesh=)``
+    with the four retrieval units and the oracle; the first DP step of
+    every loss part (hard negatives included) for the one-process check;
+    one step under each remat mode (step ms, peak memory); then
+    ``train_rc.main`` for 3 steps under remat "full" and a resume to 5
+    under "dots". The rank's launch formula (``out["want"]``) sums the
+    parts' formulas, each logged beside its own count."""
+    from densephrases_tpu_torch.cli import train_rc
+    from densephrases_tpu_torch.cli.common import load_encoder
+    from densephrases_tpu_torch.index.oracle import check_top1
+    from densephrases_tpu_torch.index.search import MIPS
+    from densephrases_tpu_torch.index.store import PhraseStore
+    from densephrases_tpu_torch.model import DensePhrases
+    from densephrases_tpu_torch.models.encoder import (
+        RCLossConfig, init_encoder_params, rc_loss)
+    from densephrases_tpu_torch.parallel import make_mesh
+    from densephrases_tpu_torch.train.rc import (
+        AdamW, create_train_state, make_train_step, shard_batch)
+
+    inp = torch.load(os.path.join(tmp, "train_in.pt"), weights_only=False)
+    out, count = {}, lambda: {k: kernels[k].launches for k in "AB"}
+
+    # MIPS over the ranks: phase 3's store, phase 7's encoder
+    store = PhraseStore.load(inp["store"])
+    params, config, tok = load_encoder(inp["enc"], device=device)
+    layers = config.num_hidden_layers
+    mips = MIPS(store, mesh=make_mesh(axis="shard", devices=[device] * world))
+    model = DensePhrases(params, config, tok, mips, serve_dtype="bf16",
+                         max_query_length=inp["max_query_length"])
+    c0 = count()
+    for unit in ("phrase", "sentence", "paragraph", "document"):
+        _, rets = model.search(inp["questions"], retrieval_unit=unit, top_k=5,
+                               return_meta=True)
+        out["units", unit] = [[(r["answer"], float(r["score"])) for r in ret]
+                              for ret in rets]
+    out["mips_launches"] = (count()["A"] - c0["A"], 4 * 2 * layers)
+    out["oracle"] = [check_top1(store, v, mips.search(
+        v[None], top_k=50, return_idxs=True)[0][0]) for v in inp["oracle"]]
+    del model, mips, params
+    torch.cuda.empty_cache()
+
+    # the first DP step (dropout off: the ranks draw apart from one
+    # process), then one step under each remat mode
+    cfg = dataclasses.replace(inp["config"], hidden_dropout_prob=0.0)
+    params = init_encoder_params(cfg, torch.Generator().manual_seed(SEED),
+                                 device=device, with_teacher=True)
+    batch = dict(np.load(inp["batch"]))
+    per_device = inp["shape"]["batch"]
+    mesh = make_mesh(axis="dp", devices=[device] * world)
+    loss_cfg = RCLossConfig(axis_name="dp", **TRAIN_LOSS)
+    opt = AdamW(lambda count: SO_LR)
+    state = create_train_state(params, opt, pbn_size=2, batch_size=per_device,
+                               hidden=cfg.hidden_size)
+    c0 = count()
+    step = make_train_step(cfg, loss_cfg, opt, mesh=mesh)
+    state, metrics = step(state, shard_batch(batch, mesh),
+                          torch.Generator().manual_seed(0))
+    out["dp_first"] = dp_summary(state, metrics)
+    want = train_step_launches(layers)
+    for remat in ("none", "full", "dots"):
+        step = make_train_step(cfg, loss_cfg, opt, mesh=mesh, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, shard_batch(batch, mesh),
+                              torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        out["remat", remat] = (1e3 * (time.perf_counter() - t0),
+                               torch.cuda.max_memory_allocated() / 2 ** 30,
+                               float(metrics["loss"]))
+        for k, v in train_step_launches(layers, remat).items():
+            want[k] += v
+    # what a forward keeps for the backward under each mode (the step's
+    # peak is the gradient buffers', the same under "full" and "dots")
+    for remat in ("none", "full", "dots"):
+        graph, saved = device_bytes(lambda: rc_loss(
+            state.params, cfg, shard_batch(batch, mesh), loss_cfg,
+            pre_batch=state.pre_batch, deterministic=True, remat=remat))
+        out["saved", remat] = saved / 2 ** 30
+        del graph  # the loss and aux's logits hold the graph
+        want["A"] += train_step_launches(layers, "none")["A"]
+    got = count()
+    out["step_launches"] = ({k: got[k] - c0[k] for k in "AB"}, want)
+    del state, params, step, opt
+    torch.cuda.empty_cache()
+
+    # the driver: 3 steps under remat "full", then a resume to 5 under
+    # "dots" (rank 0 alone logs and writes, every rank restores)
+    argv = ["--load_dir", inp["init"], "--train_file", inp["train"],
+            "--output_dir", inp["out"], "--lambda_neg", "2.0",
+            "--lambda_flt", "1.0", "--lambda_kl", "2.0", "--pbn_size", "2",
+            "--per_device_train_batch_size", str(per_device),
+            "--max_seq_length", str(inp["shape"]["seq"]), "--max_query_length",
+            str(inp["shape"]["query"]), "--warmup_steps", "1",
+            "--logging_steps", "1"]
+    c0 = count()
+    t0 = time.perf_counter()
+    state, _ = train_rc.main(argv + ["--max_steps", "3"], device=device)
+    out["driver_full_s"] = time.perf_counter() - t0
+    out["first_step"] = state.step
+    state, _ = train_rc.main(argv + ["--max_steps", "5", "--remat", "dots"],
+                             device=device)
+    got = count()
+    # per step 3 towers + their recomputes + the teacher (no hard negatives
+    # in the driver's data); filter_test's one forward a call
+    out["driver_launches"] = (
+        {k: got[k] - c0[k] for k in "AB"},
+        {"A": 5 * train_step_launches(layers, hard_negatives=False)["A"]
+         + 2 * layers,
+         "B": 5 * train_step_launches(layers, hard_negatives=False)["B"]})
+    out["driver"] = (state.step, int(state.pre_batch["count"]),
+                     checksum(state.params))
+    out["want"] = {"A": out["mips_launches"][1], "B": 0, "C": 0, "D": 0}
+    for part in ("step_launches", "driver_launches"):
+        for k in "AB":
+            out["want"][k] += out[part][1][k]
+    return out
+
+
+def scale_out_rank(rank, world, task, tmp, device):
+    """One rank of phase 10 (a fresh process that imports torch and the port
+    only): joins the task's gloo group, zeroes the launch counters, runs the
+    task (all of it mesh work) and writes its results and counts to
+    ``tmp``."""
+    import torch.distributed as dist
+
+    from densephrases_tpu_torch.models.attention import (
+        ATTENTION_BWD, ATTENTION_FWD)
+    from densephrases_tpu_torch.ops.ivf_pack import (
+        IVF_PACK_SCORE, PQ_PACK_SCORE)
+    from densephrases_tpu_torch.parallel.multihost import init_multihost
+
+    from densephrases_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)  # a bare "cuda": the current card
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_multihost(f"file://{tmp}/pg_{task}", world, rank, backend="gloo")
+    kernels = {"A": ATTENTION_FWD, "B": ATTENTION_BWD, "C": IVF_PACK_SCORE,
+               "D": PQ_PACK_SCORE}
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        out = {"serve": so_serve, "train": so_train}[task](
+            rank, world, tmp, device, kernels)
+        out["launches"] = {k: v.launches for k, v in kernels.items()}
+        out["foreign"] = sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax",
+                                                       "densephrases_tpu"))
+        torch.save(out, os.path.join(tmp, f"{task}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(task, world, tmp, device):
+    """Spawn ``world`` ranks of a phase 10 task; a rank that fails or
+    outlives SO_RANK_TIMEOUT fails the phase (every rank is ended)."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(scale_out_rank, args=(world, task, tmp, device),
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > SO_RANK_TIMEOUT:
+                raise AssertionError(f"phase 10 {task}: ranks still running "
+                                     f"after {SO_RANK_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    outs = [torch.load(os.path.join(tmp, f"{task}_{r}.pt"), weights_only=False)
+            for r in range(world)]
+    for r, o in enumerate(outs):
+        if o["foreign"]:
+            raise AssertionError(f"phase 10 {task} rank {r} imported "
+                                 f"{o['foreign']}")
+        if o["launches"] != o["want"]:
+            raise AssertionError(f"phase 10 {task} rank {r} launched "
+                                 f"{o['launches']}, its formula {o['want']}")
+    return outs, time.perf_counter() - t0
+
+
+def phase_scale_out(tmp, store, model, config, docs, rng):
+    """Phase 10: the scale-out path on one card.
+
+    a. NCCL at one rank (this process): ``init_multihost(backend="nccl")``,
+       a mesh ``FlatIndex`` over phase 3's store and one DP train step of
+       every loss part, each bit for bit the non-mesh path's; the
+       collectives themselves called once on the card;
+    b. serving over SO_SERVE_RANKS gloo ranks on the card (``so_serve``):
+       ids equal the single-device ``FlatIndex``'s and, for SQ8 and OPQ96,
+       ``ShardedIVF`` over the ranks' own shards in this process;
+    c. over SO_TRAIN_RANKS gloo ranks (``so_train``): ``MIPS(store,
+       mesh=)`` answers equal the single-device serve's, the oracle passes;
+       the first DP step against this process on the global batch of 24;
+       step ms and peak memory per remat mode; ``train_rc.main``;
+    d. ``run_parallel_dump`` with SO_DUMP_WORKERS workers over phase 7's
+       files, merged, byte for byte phase 7's dump.
+
+    The launches of the scale-out path: in this process, the counters are
+    zeroed just before a's mesh work and read just after it; in each rank,
+    from the start of its task (all mesh work) to its end. The non-mesh
+    and one-process runs that the mesh is compared with are not counted.
+    Each count must equal its own formula. Returns the sums."""
+    import torch.distributed as dist
+
+    from densephrases_tpu_torch import parallel
+    from densephrases_tpu_torch.index.flat import FlatIndex
+    from densephrases_tpu_torch.index.ivf import IVFIndex
+    from densephrases_tpu_torch.index.sharded import ShardedIVF
+    from densephrases_tpu_torch.models.attention import (
+        ATTENTION_BWD, ATTENTION_FWD)
+    from densephrases_tpu_torch.models.encoder import (
+        RCLossConfig, init_encoder_params)
+    from densephrases_tpu_torch.ops.ivf_pack import (
+        IVF_PACK_SCORE, PQ_PACK_SCORE)
+    from densephrases_tpu_torch.parallel.multihost import init_multihost
+    from densephrases_tpu_torch.tools.parallel_dump import (
+        merge_shards, run_parallel_dump)
+    from densephrases_tpu_torch.train.rc import (
+        AdamW, create_train_state, make_train_step, shard_batch)
+
+    root = os.path.join(tmp, "scale_out")
+    os.makedirs(root)
+    kernels = {"A": ATTENTION_FWD, "B": ATTENTION_BWD, "C": IVF_PACK_SCORE,
+               "D": PQ_PACK_SCORE}
+    layers = config.num_hidden_layers
+    batch = dp_batch(rng, config.vocab_size, SO_TRAIN_RANKS * TRAIN_BATCH)
+    np.savez(os.path.join(root, "batch.npz"), **batch)
+    cfg = dataclasses.replace(config, hidden_dropout_prob=0.0)
+
+    # a. NCCL at one rank
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    init_multihost(f"file://{root}/pg_one", 1, 0, backend=backend)
+    try:
+        mesh = parallel.make_mesh(axis="shard", devices=[DEVICE])
+        q = rng.standard_normal((128, config.hidden_size)).astype(np.float32)
+        single = model.mips.index.search(q, top_k=10)
+        x = torch.randn(3, 5, device=DEVICE, requires_grad=True)
+        g = parallel._AllGatherGrad.apply(x, 0, 1)
+        g.backward(torch.ones_like(g))
+        y = x.detach().clone()
+        dist.all_reduce(y)
+        dist.broadcast(y, 0)
+        coll_ok = (torch.equal(g, x) and torch.equal(x.grad, torch.ones_like(x))
+                   and torch.equal(y, x))
+        # one DP step at a mesh of one against the non-mesh step: the same
+        # weights, batch and dropout generator (dropout on)
+        half = {k: v[:TRAIN_BATCH] for k, v in batch.items()}
+        dmesh = parallel.make_mesh(axis="dp", devices=[DEVICE])
+
+        def dp_step(m):
+            p = init_encoder_params(config, torch.Generator().manual_seed(SEED),
+                                    device=DEVICE, with_teacher=True)
+            opt = AdamW(lambda count: SO_LR)
+            st = create_train_state(p, opt, pbn_size=2, batch_size=TRAIN_BATCH,
+                                    hidden=config.hidden_size)
+            step = make_train_step(config, RCLossConfig(
+                axis_name="dp" if m else None, **TRAIN_LOSS), opt, mesh=m)
+            tb = (shard_batch(half, m) if m else
+                  {k: torch.as_tensor(v, device=DEVICE) for k, v in half.items()})
+            st, met = step(st, tb, torch.Generator().manual_seed(3))
+            return float(met["loss"]), st.params
+
+        plain = dp_step(None)
+        # the mesh work, counted
+        for k in kernels.values():
+            k.launches = 0
+        meshed = FlatIndex(store.vecs, store.offset, store.scale, mesh=mesh)
+        got = meshed.search(q, top_k=10)
+        del meshed
+        meshed_step = dp_step(dmesh)
+        here = {n: k.launches for n, k in kernels.items()}
+        here_want = {"C": 0, "D": 0, **train_step_launches(layers)}
+        flat_equal = all(np.array_equal(a, b) for a, b in zip(got, single))
+        step_equal = (plain[0] == meshed_step[0]
+                      and same_params(plain[1], meshed_step[1]))
+        del plain, meshed_step
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log("10 scale_out", part="a", backend=backend, ranks=1,
+        flat_ids_equal=flat_equal, collectives_ok=coll_ok,
+        dp_step_bit_equal=step_equal, launches=here, expected=here_want,
+        seconds=round(time.perf_counter() - t0, 3))
+    if not (flat_equal and coll_ok and step_equal):
+        raise AssertionError("phase 10a: the one-rank mesh path differs "
+                             "from the non-mesh path")
+    if here != here_want:
+        raise AssertionError(f"phase 10a launched {here}, its formula "
+                             f"{here_want}")
+
+    # b. serving over gloo ranks on the card
+    torch.save({"corpus": os.path.join(tmp, "scale", "codes.npy"),
+                "queries": os.path.join(tmp, "scale", "queries.npy"),
+                "lists": SO_LISTS}, os.path.join(root, "serve_in.pt"))
+    outs, wall = run_ranks("serve", SO_SERVE_RANKS, root, DEVICE)
+    codes = np.load(os.path.join(tmp, "scale", "codes.npy"), mmap_mode="r")
+    q = np.load(os.path.join(tmp, "scale", "queries.npy"))
+    flat = FlatIndex(codes, device=DEVICE)
+    exact = flat.search(q, top_k=10)
+    single_ms = host_ms(lambda: flat.search(q, top_k=10))
+    del flat
+    torch.cuda.empty_cache()
+    ok = True
+    for r, o in enumerate(outs):
+        ok &= np.array_equal(o["queries"], q)
+        ok &= np.array_equal(o["flat"][1], exact[1])
+    log("10 scale_out", part="b", backend="gloo", ranks=SO_SERVE_RANKS,
+        index="flat", rows=codes.shape[0], ids_equal_single=bool(ok),
+        ms_per_batch=[round(o["flat_ms"], 3) for o in outs],
+        single_device_ms=round(single_ms, 3),
+        device_bytes_per_rank=[o["flat_bytes"] for o in outs],
+        spawn_wall_s=round(wall, 3))
+    if not ok:
+        raise AssertionError("phase 10b: the mesh flat index differs from "
+                             "the single-device one")
+    bases = [i * -(-codes.shape[0] // SO_SERVE_RANKS)
+             for i in range(SO_SERVE_RANKS)]
+    for fq, kernel in (("SQ8", "C"), ("OPQ96", "D")):
+        subs = [IVFIndex.load(os.path.join(root, f"shard_{fq}_{r}"),
+                              device=DEVICE) for r in range(SO_SERVE_RANKS)]
+        host = ShardedIVF(subs, bases, devices=[DEVICE] * SO_SERVE_RANKS)
+        for nprobe in SO_NPROBES:
+            want_ids = host.search(q, top_k=10, nprobe=nprobe)[1]
+            ids_eq = all(np.array_equal(o[fq, nprobe][1], want_ids)
+                         for o in outs)
+            log("10 scale_out", part="b", backend="gloo", index=fq,
+                lists=[o[fq, "nlist"] for o in outs], nprobe=nprobe,
+                batch=q.shape[0], ids_equal_sharded_ivf=ids_eq,
+                recall_at_10_vs_flat=recall_at(outs[0][fq, nprobe][1],
+                                               exact[1]),
+                ms_per_batch=[round(o[fq, nprobe, "ms"], 3) for o in outs],
+                build_s=[round(o[fq, "build_s"], 3) for o in outs],
+                device_bytes_per_rank=[o[fq, "bytes"] for o in outs],
+                launches_per_rank=[o[fq, "launches"] for o in outs])
+            if not ids_eq:
+                raise AssertionError(f"phase 10b: MeshShardedIVF {fq} ids "
+                                     f"differ from ShardedIVF's")
+        del subs, host
+        torch.cuda.empty_cache()
+    serve_launches = {k: sum(o["launches"][k] for o in outs) for k in "ABCD"}
+    log("10 scale_out", part="b", launches_per_rank=[o["launches"]
+                                                     for o in outs],
+        expected_per_rank=[o["want"] for o in outs])
+
+    # c. MIPS and DP training over gloo ranks on the card
+    questions = [" ".join(rng.choice(docs[0]["paragraphs"][0].split(" "), 6))
+                 for _ in range(8)]
+    single = {}
+    for unit in ("phrase", "sentence", "paragraph", "document"):
+        _, rets = model.search(questions, retrieval_unit=unit, top_k=5,
+                               return_meta=True)
+        single[unit] = [[(r["answer"], float(r["score"])) for r in ret]
+                        for ret in rets]
+    # this process on the whole global batch: the DP step's reference
+    p = init_encoder_params(cfg, torch.Generator().manual_seed(SEED),
+                            device=DEVICE, with_teacher=True)
+    opt = AdamW(lambda count: SO_LR)
+    st = create_train_state(p, opt, pbn_size=2,
+                            batch_size=SO_TRAIN_RANKS * TRAIN_BATCH,
+                            hidden=config.hidden_size)
+    st, met = make_train_step(cfg, RCLossConfig(**TRAIN_LOSS), opt)(
+        st, {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()},
+        torch.Generator().manual_seed(0))
+    one = dp_summary(st, met)
+    del st, p, opt
+    torch.cuda.empty_cache()
+    oracle = [rng.standard_normal(2 * config.hidden_size).astype(np.float32)
+              for _ in range(3)]
+    torch.save({"store": os.path.join(tmp, "store"),
+                "enc": os.path.join(tmp, "offline", "enc"),
+                "questions": questions, "oracle": oracle,
+                "batch": os.path.join(root, "batch.npz"),
+                "init": os.path.join(tmp, "init"),
+                "train": os.path.join(tmp, "train.json"),
+                "out": os.path.join(root, "dp_out"), "config": config,
+                "max_query_length": MAX_QUERY_LENGTH,
+                "shape": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                          "query": TRAIN_QUERY}},
+               os.path.join(root, "train_in.pt"))
+    outs, wall = run_ranks("train", SO_TRAIN_RANKS, root, DEVICE)
+    same_answers = all(o["units", u] == single[u] for o in outs
+                       for u in single)
+    log("10 scale_out", part="c", backend="gloo", ranks=SO_TRAIN_RANKS,
+        what="MIPS mesh", units_equal_single=same_answers,
+        oracle=",".join(outs[0]["oracle"]),
+        a_launches=[o["mips_launches"] for o in outs])
+    if not same_answers:
+        raise AssertionError("phase 10c: the mesh MIPS answers differ from "
+                             "the single-device serve's")
+    dp = outs[0]["dp_first"]
+    loss_rel = abs(dp["loss"] - one["loss"]) / abs(one["loss"])
+    grad_norm_rel = abs(dp["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+    norm_rel = {t: abs(dp["norms"][t] - one["norms"][t]) / one["norms"][t]
+                for t in SO_TOWERS}
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        dp["mu"][n].ravel(), one["mu"][n].ravel(), dim=0)) for n in one["mu"]}
+    ranks_equal = all(o["driver"] == outs[0]["driver"] for o in outs)
+    log("10 scale_out", part="c", what="dp_first_step", loss_ranks=dp["loss"],
+        loss_one_process=one["loss"], loss_rel=loss_rel,
+        loss_rtol=SO_LOSS_RTOL, grad_norm_ranks=dp["grad_norm"],
+        grad_norm_one=one["grad_norm"], grad_norm_rel=grad_norm_rel,
+        grad_norm_rtol=SO_GRAD_NORM_RTOL, norm_rel_max=max(norm_rel.values()), norm_rtol=SO_NORM_RTOL,
+        cos_min=min(cos.values()), cos_min_at=min(cos, key=cos.get),
+        cos_floor=SO_GRAD_COS)
+    for remat in ("none", "full", "dots"):
+        log("10 scale_out", part="c", what="dp_step", remat=remat,
+            step_ms=[round(o["remat", remat][0], 2) for o in outs],
+            peak_gib=[o["remat", remat][1] for o in outs],
+            forward_saved_gib=[o["saved", remat] for o in outs],
+            loss=outs[0]["remat", remat][2])
+    with open(os.path.join(root, "dp_out", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    step_ms = [1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])
+               if b["step"] != 4]  # the resume's first step follows a restart
+    log("10 scale_out", part="c", what="train_rc.main",
+        steps=[r["step"] for r in rows], losses=[round(r["loss"], 4)
+                                                 for r in rows],
+        step_ms=[round(x, 1) for x in step_ms],
+        driver_full_s=round(outs[0]["driver_full_s"], 3),
+        ranks_equal=ranks_equal, spawn_wall_s=round(wall, 3))
+    if (loss_rel > SO_LOSS_RTOL or grad_norm_rel > SO_GRAD_NORM_RTOL
+            or max(norm_rel.values()) > SO_NORM_RTOL
+            or min(cos.values()) < SO_GRAD_COS):
+        raise AssertionError("phase 10c: the DP step differs from one "
+                             "process on the global batch")
+    if not ranks_equal or [r["step"] for r in rows] != [1, 2, 3, 4, 5] \
+            or outs[0]["driver"][:2] != (5, 5):
+        raise AssertionError("phase 10c: train_rc.main over the ranks "
+                             f"went wrong: {outs[0]['driver']} {rows}")
+    train_launches = {k: sum(o["launches"][k] for o in outs) for k in "ABCD"}
+    log("10 scale_out", part="c", launches_per_rank=[o["launches"]
+                                                     for o in outs],
+        expected_per_rank=[o["want"] for o in outs])
+
+    # d. the parallel dump against phase 7's single dump
+    offline = os.path.join(tmp, "offline")
+    t0 = time.perf_counter()
+    run_parallel_dump(os.path.join(offline, "corpus"),
+                      os.path.join(root, "pdump"), os.path.join(offline, "enc"),
+                      SO_DUMP_WORKERS, DUMP_SEQ, devices=[DEVICE],
+                      timeout=300)
+    merged = merge_shards(os.path.join(root, "pdump"))
+    dump_s = time.perf_counter() - t0
+    one_dump = os.path.join(offline, "dump", "phrase")
+    names = sorted(os.listdir(one_dump))
+    equal = (names == sorted(os.listdir(merged))
+             and all(same_files(os.path.join(one_dump, n),
+                                os.path.join(merged, n)) for n in names))
+    log("10 scale_out", part="d", workers=SO_DUMP_WORKERS, files=len(names),
+        byte_equal=equal, seconds=round(dump_s, 3))
+    if not equal:
+        raise AssertionError("phase 10d: the merged parallel dump differs "
+                             "from phase 7's dump")
+
+    counts = {k: here[k] + serve_launches[k] + train_launches[k]
+              for k in "ABCD"}
+    log("10 scale_out", **{f"{k.lower()}_launches": v
+                           for k, v in counts.items()},
+        mesh_work="a's mesh work in this process and every rank's task")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
@@ -2050,6 +2681,9 @@ def main():
     # ---- 9. trainers (A, B and D counters from zero before each part)
     trainer_launches = phase_trainers(tmp, config, tok, docs, smi)
 
+    # ---- 10. scale-out (A-D counted in this process and in every rank)
+    scale_out_launches = phase_scale_out(tmp, store, model, config, docs, rng)
+
     def timing(row, *rows):
         """The line's numbers for one kernel from its headline row; every
         row's numbers beside them."""
@@ -2071,21 +2705,24 @@ def main():
         "replaces": "densephrases_tpu/models/attention.py:44",
         "launches": (main_path_launches + train_launches["A"]
                      + offline_launches["A"] + scale_launches["A"]
-                     + trainer_launches["A"]),
+                     + trainer_launches["A"] + scale_out_launches["A"]),
         "launches_by_path": {"dump_serve": main_path_launches,
                              "train": train_launches["A"],
                              "offline": offline_launches["A"],
                              "scale": scale_launches["A"],
-                             "trainers": trainer_launches["A"]},
+                             "trainers": trainer_launches["A"],
+                             "scale_out": scale_out_launches["A"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         **timing(serve_row, *bf16(kernel_rows)),
         "at": "B=64 H=12 L=32 D=64 bf16"}, {
         "name": "attention_bwd", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "densephrases_tpu/models/attention.py:94",
-        "launches": train_launches["B"] + trainer_launches["B"],
+        "launches": (train_launches["B"] + trainer_launches["B"]
+                     + scale_out_launches["B"]),
         "launches_by_path": {"train": train_launches["B"],
-                             "trainers": trainer_launches["B"]},
+                             "trainers": trainer_launches["B"],
+                             "scale_out": scale_out_launches["B"]},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         **timing(bwd_row, *bf16(bwd_rows)),
         "at": "B=12 H=12 L=384 D=64 bf16"}, {
@@ -2093,10 +2730,11 @@ def main():
         "source": "densephrases_tpu_torch/csrc/ivf_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:94",
         "launches": (ivf_launches["C"] + offline_launches["C"]
-                     + scale_launches["C"]),
+                     + scale_launches["C"] + scale_out_launches["C"]),
         "launches_by_path": {"ivf": ivf_launches["C"],
                              "offline": offline_launches["C"],
-                             "scale": scale_launches["C"]},
+                             "scale": scale_launches["C"],
+                             "scale_out": scale_out_launches["C"]},
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["C"]),
         **timing(ivf_rows["C"][0], *ivf_rows["C"]),
         "product_only_ms": [r["product_only_ms"] for r in ivf_rows["C"]],
@@ -2106,10 +2744,11 @@ def main():
         "source": "densephrases_tpu_torch/csrc/pq_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:343",
         "launches": (ivf_launches["D"] + offline_launches["D"]
-                     + trainer_launches["D"]),
+                     + trainer_launches["D"] + scale_out_launches["D"]),
         "launches_by_path": {"ivf": ivf_launches["D"],
                              "offline": offline_launches["D"],
-                             "trainers": trainer_launches["D"]},
+                             "trainers": trainer_launches["D"],
+                             "scale_out": scale_out_launches["D"]},
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["D"]),
         **timing(ivf_rows["D"][0], *ivf_rows["D"]),
         "edge_rel_err": ivf_edge_err["D"],

@@ -27,6 +27,7 @@ from densephrases_tpu_torch.models.encoder import (
     EncoderParams,
     init_encoder_params,
 )
+from densephrases_tpu_torch.parallel import rank_and_size
 from densephrases_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -52,11 +53,14 @@ def load_config(load_dir: str) -> BertConfig:
 
 def save_encoder(save_dir: str, params, config: BertConfig,
                  tokenizer: WordPieceTokenizer):
-    """params: an ``EncoderParams`` or its state dict."""
-    os.makedirs(save_dir, exist_ok=True)
-    with open(os.path.join(save_dir, "config.json"), "w") as f:
-        json.dump(config.__dict__, f)
-    tokenizer.save_vocab(os.path.join(save_dir, "vocab.txt"))
+    """params: an ``EncoderParams`` or its state dict. Under a process
+    group of several ranks every rank calls this, rank 0 alone writes and
+    all wait until it has (``save_checkpoint``)."""
+    if rank_and_size()[0] == 0:
+        os.makedirs(save_dir, exist_ok=True)
+        with open(os.path.join(save_dir, "config.json"), "w") as f:
+            json.dump(config.__dict__, f)
+        tokenizer.save_vocab(os.path.join(save_dir, "vocab.txt"))
     save_checkpoint(os.path.join(save_dir, "params"), params, step=0)
 
 

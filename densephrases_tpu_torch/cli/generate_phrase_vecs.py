@@ -6,10 +6,11 @@ the same flags, file-range sharding "start:end" over the sorted files of
 ``--data_dir``, resume, and a SQuAD-format corpus (one or many files). The
 phrase tower runs on ``device``; a CUDA device that is missing raises.
 
-Usage:
+Usage (``--device``, default "cuda", names the card of a process run
+from the command line):
   python -m densephrases_tpu_torch.cli.generate_phrase_vecs \\
       --load_dir enc/ --data_dir wiki/ --predict_file 0:100 \\
-      --dump_dir dump/ [--index_filter 1.0]
+      --dump_dir dump/ [--index_filter 1.0] [--device cuda:1]
 """
 
 from __future__ import annotations
@@ -73,4 +74,9 @@ def main(argv=None, device="cuda"):
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--device", default="cuda")
+    args, rest = ap.parse_known_args()
+    main(rest, device=args.device)

@@ -10,15 +10,27 @@ Differences from the reference, all deliberate:
 
 - ``device`` is explicit; a CUDA device that is missing raises, and only
   ``device="cpu"`` runs on the CPU;
-- one device: the reference's data-parallel mesh (``shard_map`` with global
-  in-batch negatives) is not ported;
+- data parallelism is one process a device (the reference's ``n_dev``
+  path, cli/train_rc.py:106-161, is one controller over a mesh): the world
+  is the ``torch.distributed`` process group, joined from ``torchrun``'s
+  environment when the caller has not joined one (backend "nccl" for a
+  CUDA device, "gloo" for the CPU; under ``torchrun`` a bare "cuda" is
+  ``cuda:$LOCAL_RANK``). The global batch is ``per_device_train_batch_size
+  x world``, each rank trains on its contiguous slice with global in-batch
+  negatives, rank 0 alone logs, checkpoints and saves the encoder and runs
+  the dev eval, and every rank resumes from the checkpoint;
+- with several ranks and fewer features than one global batch the driver
+  raises: the reference falls back to one device, which here would be
+  several duplicate trainers;
 - each step's dropout generator is seeded from (``--seed``, step), so a
-  resumed run draws the same masks as an uninterrupted one. ``--rng_impl``
-  is accepted and has no effect.
+  resumed run draws the same masks as an uninterrupted one (rank r > 0
+  folds in r, ``train/rc.py:rank_generator``). ``--rng_impl`` is accepted
+  and has no effect.
 
 Usage:
   python -m densephrases_tpu_torch.cli.train_rc --train_file squad.json \\
       --output_dir out/ --lambda_neg 2.0 --lambda_flt 1.0 [--draft]
+  torchrun --nproc_per_node 8 -m densephrases_tpu_torch.cli.train_rc ...
 """
 
 from __future__ import annotations
@@ -38,10 +50,12 @@ from densephrases_tpu_torch.data.qa import load_rc_examples
 from densephrases_tpu_torch.data.rc_dataset import batches, convert_rc_examples
 from densephrases_tpu_torch.models.encoder import TEACHER, RCLossConfig
 from densephrases_tpu_torch.options import Options
+from densephrases_tpu_torch.parallel import make_mesh, rank_and_size
 from densephrases_tpu_torch.train.rc import (
     create_train_state,
     make_optimizer,
     make_train_step,
+    shard_batch,
 )
 from densephrases_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
@@ -76,8 +90,30 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state[0] >> np.uint64(1)))
 
 
-def main(argv=None, device="cuda"):
+def join_world(device: str):
+    """Join ``torchrun``'s process group when the caller has not joined
+    one; returns this rank's device (a bare "cuda" is ``cuda:$LOCAL_RANK``
+    under ``torchrun``)."""
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if (world > 1 and str(device) == "cuda"
+            and "LOCAL_RANK" in os.environ):
+        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
     device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if world > 1 and not dist.is_initialized():
+        dist.init_process_group(
+            backend="nccl" if device.type == "cuda" else "gloo",
+            init_method="env://")
+    return device
+
+
+def main(argv=None, device="cuda"):
+    device = join_world(device)
+    rank, world = rank_and_size()
+    lead = rank == 0
     opts = Options().parse(argv, groups=["model", "data", "train"])
     m, d, t = opts.model, opts.data, opts.train
 
@@ -121,7 +157,12 @@ def main(argv=None, device="cuda"):
                              config.max_position_embeddings))
     logger.info("converted %d features", len(feats))
 
-    batch_size = t.per_device_train_batch_size
+    batch_size = t.per_device_train_batch_size * world
+    if world > 1 and len(feats) < batch_size:
+        raise ValueError(
+            f"only {len(feats)} features for a global batch of {batch_size} "
+            f"over {world} ranks: use fewer ranks or a smaller "
+            "--per_device_train_batch_size")
     if len(feats) < batch_size:
         # tiny/draft datasets: repeat features so at least one full batch
         # exists (drop_last would otherwise silently train nothing)
@@ -138,6 +179,10 @@ def main(argv=None, device="cuda"):
         adam_epsilon=t.adam_epsilon, max_grad_norm=t.max_grad_norm)
     loss_cfg = RCLossConfig(lambda_kl=t.lambda_kl, lambda_neg=t.lambda_neg,
                             lambda_flt=t.lambda_flt)
+    mesh = None
+    if world > 1:
+        mesh = make_mesh(axis="dp", devices=[device] * world)
+        loss_cfg.axis_name = "dp"
     state = create_train_state(
         params, optimizer, pbn_size=t.pbn_size,
         batch_size=t.per_device_train_batch_size, hidden=config.hidden_size)
@@ -150,19 +195,25 @@ def main(argv=None, device="cuda"):
 
     from densephrases_tpu_torch.utils.metrics_log import MetricsLogger
 
-    mlog = MetricsLogger(m.output_dir or None, use_wandb=t.wandb)
-    step_fn = make_train_step(config, loss_cfg, optimizer, remat=t.remat)
+    mlog = MetricsLogger(m.output_dir or None, use_wandb=t.wandb) \
+        if lead else None
+    step_fn = make_train_step(config, loss_cfg, optimizer, mesh=mesh,
+                              remat=t.remat)
     global_step = skip_steps
     for epoch in range(int(np.ceil(t.num_train_epochs))):
         ep_skip = max(0, skip_steps - epoch * steps_per_epoch)
         for batch in batches(feats, batch_size, seed=t.seed + epoch,
                              skip_steps=ep_skip):
-            batch = {k: torch.as_tensor(v, device=device)
-                     for k, v in batch.items()}
+            if mesh is not None:
+                batch = shard_batch(batch, mesh)
+            else:
+                batch = {k: torch.as_tensor(v, device=device)
+                         for k, v in batch.items()}
             state, metrics = step_fn(state, batch,
                                      step_generator(t.seed, global_step))
             global_step += 1
-            if global_step % max(t.logging_steps, 1) == 0 or opts.verbose:
+            if lead and (global_step % max(t.logging_steps, 1) == 0
+                         or opts.verbose):
                 logger.info("step %d: loss=%.4f", global_step,
                             float(metrics["loss"]))
                 mlog.log(global_step,
@@ -184,7 +235,7 @@ def main(argv=None, device="cuda"):
         logger.info("saved to %s", m.output_dir)
 
     # dev-set RC eval (ref: train_rc.py:307-407 evaluate + eval_logger)
-    if d.dev_file:
+    if d.dev_file and lead:
         from densephrases_tpu_torch.eval.rc import evaluate_rc
 
         dev_examples = load_rc_examples(d.dev_file, draft=opts.draft)

@@ -1,4 +1,4 @@
-"""Flat (exact) MIPS over the int8 phrase store, on one device.
+"""Flat (exact) MIPS over the int8 phrase store, on one device or a mesh.
 
 The counterpart of the single-device paths of
 ``densephrases_tpu/index/flat.py``:
@@ -19,7 +19,15 @@ The counterpart of the single-device paths of
 
 The reference takes ``approx_max_k`` per chunk on the TPU; the port takes an
 exact ``torch.topk``, which equals the reference on CPU (where
-``approx_max_k`` is exact). The mesh-sharded path is not ported yet.
+``approx_max_k`` is exact).
+
+With a ``mesh`` (``parallel.Mesh``: one rank a device), rank r keeps rows
+``[r*shard_rows, (r+1)*shard_rows)`` on its card, padded to whole chunks,
+scans them, and the ranks' ``[B, K]`` candidates (global ids = local +
+``r*shard_rows``) are all-gathered and merged (``ops/topk.topk_merge``), so
+every rank returns the same result: the reference's ``shard_map`` path
+(flat.py:262-293). A rank may instead be handed its preassembled block
+(``parallel/multihost.flat_from_process_shards``).
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from densephrases_tpu_torch.ops.quant import (
     float_to_int4,
     int8_to_float,
 )
+from densephrases_tpu_torch.ops.topk import topk_merge
+from densephrases_tpu_torch.parallel import all_gather
 from densephrases_tpu_torch.utils.device import resolve_device
 
 NEG_INF = -1e30  # pad-row score (flat.py:33)
@@ -95,7 +105,8 @@ def _scan_topk_int4(queries, packed, n_valid: int, offset: float,
 
 
 class FlatIndex:
-    """Exact MIPS over int8 (or re-quantized int4) codes on one device."""
+    """Exact MIPS over int8 (or re-quantized int4) codes, on one device or
+    sharded over a mesh's ranks."""
 
     def __init__(self, codes, offset: float = DEFAULT_OFFSET,
                  scale: float = DEFAULT_SCALE, mesh=None,
@@ -105,24 +116,35 @@ class FlatIndex:
                  n_total: Optional[int] = None, *, device="cuda"):
         """codes: [N, D] int8 numpy array (a memmap streams slice by slice,
         never copied whole on the host). The parameters are the
-        reference's, in its order: ``mesh`` (with ``shard_axis``) is not
-        ported and raises when set; ``n_total`` serves the reference's
-        preassembled multi-host codes only, so here it must equal N when
-        given. quant: "int8", or "int4" with the int4 contract
-        (``int4_offset``, ``int4_scale``; None: the fixed defaults)."""
-        if mesh is not None:
-            raise NotImplementedError("the mesh-sharded FlatIndex is not ported")
-        if codes.dtype != np.int8:
+        reference's, in its order. mesh: a ``parallel.Mesh``; each rank
+        passes the same codes and keeps its own rows on ``mesh.device``
+        (``device`` is then unused). With a mesh, codes may instead be this
+        rank's PREASSEMBLED block [1, shard_rows // chunk, chunk, D] (a
+        tensor or array; ``flat_from_process_shards``), and ``n_total``,
+        the global row count, is required; the reference takes the whole
+        stacked global array there. Without a mesh ``n_total`` must equal
+        N when given. quant: "int8", or "int4" with the int4 contract
+        (``int4_offset``, ``int4_scale``; None: the fixed defaults),
+        single-device only as in the reference."""
+        if codes.dtype not in (np.int8, torch.int8):
             raise ValueError(f"codes must be int8, got {codes.dtype}")
         if quant not in ("int8", "int4"):
             raise ValueError(f"quant must be 'int8' or 'int4', got {quant!r}")
+        self.quant = quant
+        self.offset = float(offset)
+        self.scale = float(scale)
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        if mesh is not None:
+            if quant != "int8":
+                raise ValueError("the int4 flat index is single-device")
+            self.device = mesh.device
+            self._init_mesh(codes, chunk, n_total)
+            return
         if n_total is not None and int(n_total) != codes.shape[0]:
             raise ValueError(f"n_total {n_total} != {codes.shape[0]} rows")
         self.device = resolve_device(device)
-        self.quant = quant
         self.n_total, self.dim = codes.shape
-        self.offset = float(offset)
-        self.scale = float(scale)
         self.chunk = min(chunk, max(512, _round_up(self.n_total or 1, 8)))
         self.shard_rows = _round_up(max(self.n_total, 1), self.chunk)
         if quant == "int4":
@@ -137,26 +159,76 @@ class FlatIndex:
             (self.shard_rows, width),
             dtype=torch.uint8 if quant == "int4" else torch.int8,
             device=self.device)
-        for i0 in range(0, self.n_total, SLICE_ROWS):
+        self._upload(codes, 0, self.n_total)
+
+    def _upload(self, codes, lo: int, hi: int):
+        """Copy rows [lo, hi) of host codes into ``self.codes[0:hi-lo]``."""
+        for i0 in range(lo, hi, SLICE_ROWS):
             # a writable copy of one slice: stores load read-only
-            rows = torch.from_numpy(np.array(codes[i0:i0 + SLICE_ROWS]))
-            if quant == "int4":  # re-quantized on the device
+            rows = torch.from_numpy(np.array(codes[i0:min(i0 + SLICE_ROWS,
+                                                          hi)]))
+            if self.quant == "int4":  # re-quantized on the device
                 rows = float_to_int4(
                     int8_to_float(rows.to(self.device), self.offset,
                                   self.scale),
                     self.int4_offset, self.int4_scale)
-            self.codes[i0:i0 + rows.shape[0]].copy_(rows)
+            self.codes[i0 - lo:i0 - lo + rows.shape[0]].copy_(rows)
+
+    def _init_mesh(self, codes, chunk: int, n_total: Optional[int]):
+        """This rank's rows, in the reference's stacked layout (the same
+        chunk and shard_rows arithmetic, so global ids agree)."""
+        n_dev = self.mesh.shape[self.shard_axis]
+        if codes.ndim == 4:  # a preassembled block of this rank's rows
+            if n_total is None:
+                raise ValueError("preassembled codes need n_total")
+            if codes.shape[0] != 1 or codes.shape[2] % 8:
+                raise ValueError(f"preassembled block {tuple(codes.shape)} "
+                                 "is not [1, chunks, chunk, D]")
+            self.n_total, self.dim = int(n_total), int(codes.shape[3])
+            self.chunk = int(codes.shape[2])
+            self.shard_rows = int(codes.shape[1] * codes.shape[2])
+            self.codes = torch.as_tensor(codes, device=self.device).reshape(
+                self.shard_rows, self.dim)
+            return
+        if n_total is not None and int(n_total) != codes.shape[0]:
+            raise ValueError(f"n_total {n_total} != {codes.shape[0]} rows")
+        self.n_total, self.dim = codes.shape
+        self.chunk = min(chunk, max(512, _round_up(
+            self.n_total // max(n_dev, 1) or 1, 8)))
+        self.shard_rows = _round_up(
+            max(self.n_total // n_dev + (self.n_total % n_dev > 0), 1),
+            self.chunk)
+        self.codes = torch.zeros((self.shard_rows, self.dim),
+                                 dtype=torch.int8, device=self.device)
+        lo = min(self.mesh.rank * self.shard_rows, self.n_total)
+        self._upload(codes, lo, min(lo + self.shard_rows, self.n_total))
+
+    def _mesh_search(self, queries, k: int):
+        """Per-rank scan, then the all-gather and merge of the candidates."""
+        base = self.mesh.rank * self.shard_rows
+        n_valid = min(max(self.n_total - base, 0), self.shard_rows)
+        vals, ids = _scan_topk(queries, self.codes, n_valid, self.offset,
+                               self.scale, top_k=k, chunk=self.chunk)
+        # int32 global ids below 2^31 rows, as in the reference
+        gids = ids.to(torch.int32 if self.n_total < 2**31 else torch.int64)
+        gids = gids + base
+        all_vals = all_gather(vals[None], self.mesh)  # [S, B, K]
+        all_ids = all_gather(gids[None], self.mesh)
+        return topk_merge(all_vals.transpose(0, 1), all_ids.transpose(0, 1), k)
 
     def search(self, queries, top_k: int = 10, nprobe: int = 0,
                as_numpy: bool = True):
         """queries: [B, D] → (scores [B, K] fp32, ids [B, K] int32).
         nprobe is accepted and ignored, as in the reference, so ``MIPS``
         passes it to either index type. as_numpy=False keeps the results
-        on the device."""
+        on the device. With a mesh every rank passes the same queries and
+        gets the same merged result."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
         k = min(top_k, self.n_total)
-        if self.quant == "int4":
+        if self.mesh is not None:
+            vals, ids = self._mesh_search(queries, k)
+        elif self.quant == "int4":
             vals, ids = _scan_topk_int4(
                 queries, self.codes, self.n_total, self.int4_offset,
                 self.int4_scale, top_k=k, chunk=self.chunk)

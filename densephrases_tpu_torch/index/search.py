@@ -33,7 +33,13 @@ A tiered index (``index/tiered.py``, recognised by its
 ``gather_rows_host``) serves a corpus larger than the device: no corpus-
 sized tensor is made, stage 1's hits come to the host, and stage 2 runs in
 numpy (``_rescore_spans_host``) over candidate windows gathered from the
-host memmap. The sharded indexes are not ported (``mesh`` raises).
+host memmap.
+
+``mesh`` (a ``parallel.Mesh``) shards the flat index over the ranks
+(``FlatIndex(mesh=...)``): every rank runs the same search on the same
+queries, and the stage-1 merge is an all-gather. A mesh index is no 2-D
+buffer to share, so each rank uploads the store's codes for the rescore
+(ref search.py:298-300).
 """
 
 from __future__ import annotations
@@ -258,7 +264,8 @@ def _sentencize(text: str):
 
 class MIPS:
     """Phrase search engine over a flat, an IVF or a tiered index on one
-    device (API parity with ref MIPS, index.py:23)."""
+    device, or over a flat index sharded on a mesh (API parity with ref
+    MIPS, index.py:23)."""
 
     def __init__(self, store: PhraseStore, index=None, rotation=None,
                  mesh=None, shard_axis: str = "shard",
@@ -268,20 +275,20 @@ class MIPS:
         index: a ``FlatIndex``, ``IVFIndex``, ``TieredFlatIndex`` or
         ``TieredIVF`` (None: a flat int8 index over the store). rotation:
         a [D, D] matrix applied to the queries of both stages. mesh (with
-        ``shard_axis``): not ported, raises when set. collect_stats:
+        ``shard_axis``): a ``parallel.Mesh``; with no ``index``, the flat
+        index is sharded over its ranks, on ``mesh.device``. collect_stats:
         record the unique docs a query's hits touch (``num_docs_list``).
         preload_meta: decompress the doc metadata in the background.
         device: where to upload the corpus when no
         ``index`` is given (None: "cuda"); with an ``index``, None or its
         device. ``init_stages`` holds the seconds of each set-up stage."""
-        if mesh is not None:
-            raise NotImplementedError("the mesh-sharded MIPS is not ported")
         self.store = store
         self.collect_stats = collect_stats
         stages = {}
         t = time.perf_counter()
         if index is None:
             index = FlatIndex(store.vecs, store.offset, store.scale,
+                              mesh=mesh, shard_axis=shard_axis,
                               device="cuda" if device is None else device)
             stages["index_upload_s"] = round(time.perf_counter() - t, 3)
         # a tiered index rescores on the host from its row gather
@@ -334,7 +341,8 @@ class MIPS:
         """The original-order int8 corpus on the index's device for the
         rescore (which clips row ids, so pad rows are never candidates),
         or None in decode mode, which sets ``pq_serve``."""
-        if isinstance(index, FlatIndex) and index.quant == "int8":
+        if (isinstance(index, FlatIndex) and index.quant == "int8"
+                and index.mesh is None):
             return index.codes  # shared: the padded flat buffer
         if isinstance(index, IVFIndex):
             refine = index.refine_codes
@@ -349,9 +357,10 @@ class MIPS:
                 _sync(self.device)
                 stages["pq_setup_s"] = round(time.perf_counter() - t, 3)
                 return None
-        # SQ8 / SQ4 (codes sorted by list) or an int4 flat index (whose
-        # nibbles are not the int8 corpus; the reference's MIPS shares them
-        # and fails, ROADMAP Queue 3)
+        # SQ8 / SQ4 (codes sorted by list), a mesh flat index (this rank's
+        # rows only) or an int4 flat index (whose nibbles are not the int8
+        # corpus; the reference's MIPS shares them and fails, ROADMAP
+        # Queue 3)
         return _upload(store.vecs, torch.int8, index.device)
 
     @staticmethod

@@ -279,15 +279,22 @@ class PhraseStore:
     @staticmethod
     def merge(shard_paths: List[str], out_path: str) -> "PhraseStore":
         """Merge shard stores into one (ref merge stage:
-        build_phrase_index.py:282-338 — here it is pure concatenation because
-        ids are (doc_base + position), not global hash ids)."""
+        build_phrase_index.py:282-338 — here it is concatenation because
+        ids are (doc_base + position), not global hash ids). Every dump
+        numbers its docs from 0, so a shard's doc ids (in the store and its
+        metadata) are offset by the docs of the shards before it; the
+        reference keeps each shard's ids, which repeat (ROADMAP Queue 3)."""
         first = PhraseStore.load(shard_paths[0], mmap=True)
         writer = StoreWriter(out_path, first.dim, first.offset, first.scale)
+        base = 0
         for sp in shard_paths:
             shard = PhraseStore.load(sp, mmap=True)
             for i in range(shard.num_docs):
-                writer.add_doc_raw(int(shard.doc_ids[i]), shard.vec_rows(i),
-                                   shard.meta_compressed(i))
+                doc_id = base + int(shard.doc_ids[i])
+                writer.add_doc_raw(doc_id, shard.vec_rows(i),
+                                   {**shard.meta_compressed(i),
+                                    "doc_id": doc_id})
+            base += shard.num_docs
         return writer.finalize()
 
     @property

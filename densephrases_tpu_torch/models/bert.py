@@ -22,7 +22,15 @@ training, ``BertModel.forward`` takes a dropout generator and a remat mode:
   after the attention-out and FFN-out projections. There is no dropout on
   the attention probabilities, as in the reference;
 - remat "full" recomputes each layer in the backward
-  (``torch.utils.checkpoint``), "none" keeps its activations.
+  (``torch.utils.checkpoint``), "none" keeps its activations, and "dots"
+  keeps the products and recomputes the rest (JAX's ``checkpoint_dots``):
+  a selective-checkpoint policy saves the outputs of ``aten.mm`` /
+  ``addmm`` / ``bmm`` and recomputes every other op. The CUDA attention
+  (kernels A and B, an autograd Function launched through ctypes) is no
+  product under that policy, so, as the reference's ``custom_vjp``
+  attention under ``checkpoint_dots``, it is recomputed: a layer launches
+  kernel A twice and kernel B once a training step under "dots" as under
+  "full" (once and once under "none").
   ``torch.utils.checkpoint`` restores the global RNG state only, not an
   explicit generator, so each layer's dropout seed is drawn from the step's
   generator before the layer runs (as the reference splits ``layer_rngs``
@@ -38,7 +46,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from densephrases_tpu_torch.models.attention import attention
 
@@ -119,6 +131,20 @@ def dropout_bits(shape, seed: int, device) -> torch.Tensor:
     gen = torch.Generator(device=device).manual_seed(seed)
     return torch.randint(0, 256, tuple(shape), dtype=torch.uint8,
                          device=device, generator=gen)
+
+
+# remat "dots": the ops whose outputs the backward keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
 
 
 # Weight matrices drawn from N(0, initializer_range); the rest are biases
@@ -236,11 +262,9 @@ class BertModel(nn.Module):
         [num_hidden_layers, 2, B, L, H]), as the reference draws them from
         its key splits (the tests feed those).
         remat: "full" recomputes each layer in the backward, "none" does
-        not; "dots" (keep the products, recompute the rest) is not ported."""
+        not, "dots" keeps the layer's products and recomputes the rest."""
         cfg = self.config
-        if remat not in ("full", "none"):
-            if remat == "dots":
-                raise NotImplementedError("remat='dots' is not ported")
+        if remat not in ("full", "none", "dots"):
             raise ValueError(f"unknown remat mode {remat!r}")
         b, l = input_ids.shape
         if l > cfg.max_position_embeddings:
@@ -265,11 +289,12 @@ class BertModel(nn.Module):
             x = dropout_from_bits(x, cfg.hidden_dropout_prob, emb_bits)
         x = x.to(compute_dtype)
         mask = attention_mask.to(torch.float32)
-        recompute = remat == "full" and torch.is_grad_enabled()
+        recompute = remat != "none" and torch.is_grad_enabled()
+        ckpt_kw = {"context_fn": _dots_context} if remat == "dots" else {}
         for layer, seed in zip(self.layers, seeds):
             if recompute:
                 x = checkpoint(layer, x, mask, cfg, attn_impl, compute_dtype,
-                               seed, use_reentrant=False)
+                               seed, use_reentrant=False, **ckpt_kw)
             else:
                 x = layer(x, mask, cfg, attn_impl, compute_dtype, seed)
         return x.to(torch.float32)

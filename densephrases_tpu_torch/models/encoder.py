@@ -14,8 +14,10 @@ The counterpart of ``densephrases_tpu/models/encoder.py``:
   points and build no autograd graph;
 - ``rc_loss``: the 4-part training objective (encoder.py:135-292): single-
   passage CE, KL distillation from the teacher, in-batch / pre-batch /
-  hard-negative CE and the filter BCE, with gradients. Cross-device
-  negatives (``axis_name``) are not ported;
+  hard-negative CE and the filter BCE, with gradients. With ``axis_name``
+  set, the negatives are global across the data-parallel ranks: the gold
+  reps and hard negatives are gathered with ``parallel.all_gather_grad``
+  and the labels offset by ``rank * B`` (encoder.py:223-243);
 - ``init_pre_batch`` / ``pre_batch_update``: the pre-batch ring buffer;
 - ``query_loss``: the query-side fine-tuning MML objective
   (encoder.py:313-370) over frozen candidate vectors, with gradients into
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from densephrases_tpu_torch.models.bert import BertConfig, BertModel, _param
+from densephrases_tpu_torch.parallel import all_gather_grad, rank_and_size
 from densephrases_tpu_torch.utils.device import resolve_device
 
 TOWERS = ("phrase", "query_start", "query_end")
@@ -159,7 +162,8 @@ class RCLossConfig:
     lambda_kl: float = 0.0
     lambda_neg: float = 0.0
     lambda_flt: float = 0.0
-    # mesh axis for cross-device negatives in the reference; not ported
+    # the data-parallel axis for global negatives: the default process
+    # group's one axis (``parallel.Mesh``); None keeps them local
     axis_name: Optional[str] = None
 
 
@@ -183,9 +187,6 @@ def rc_loss(params: EncoderParams, config: BertConfig, batch, loss_cfg:
     Returns (total_loss, aux): aux carries the per-part losses, the logits
     and the gold reps (detached) for the pre-batch ring.
     """
-    if loss_cfg.axis_name is not None:
-        raise NotImplementedError(
-            "cross-device negatives (axis_name) are not ported")
     gen = None if deterministic else dropout
     kw = dict(attn_impl=attn_impl, remat=remat, compute_dtype=compute_dtype)
     start, end, f_start, f_end = _phrase(
@@ -249,12 +250,22 @@ def rc_loss(params: EncoderParams, config: BertConfig, batch, loss_cfg:
 
     # 3) in-batch / hard / pre-batch negatives
     if loss_cfg.lambda_neg > 0:
-        inb_start_logits = query_start @ gold_start.T  # [B, B]
-        inb_end_logits = query_end @ gold_end.T
+        all_gold_start, all_gold_end, label_offset = gold_start, gold_end, 0
+        if loss_cfg.axis_name is not None:
+            # the global batch's golds from every rank
+            rank, _ = rank_and_size()
+            all_gold_start = all_gather_grad(gold_start)
+            all_gold_end = all_gather_grad(gold_end)
+            label_offset = rank * b
+        inb_start_logits = query_start @ all_gold_start.T  # [B, B * ranks]
+        inb_end_logits = query_end @ all_gold_end.T
         if "neg_input_ids" in batch:
             neg_start, neg_end, _, _ = _phrase(
                 params, batch["neg_input_ids"], batch["neg_attention_mask"],
                 batch.get("neg_token_type_ids"), dropout=gen, **kw)
+            if loss_cfg.axis_name is not None:
+                neg_start = all_gather_grad(neg_start)
+                neg_end = all_gather_grad(neg_end)
             neg_s = torch.einsum("bh,nlh->bnl", query_start, neg_start).amax(-1)
             neg_e = torch.einsum("bh,nlh->bnl", query_end, neg_end).amax(-1)
             inb_start_logits = torch.cat([inb_start_logits, neg_s], 1)
@@ -270,8 +281,9 @@ def rc_loss(params: EncoderParams, config: BertConfig, batch, loss_cfg:
             inb_start_logits = torch.cat([inb_start_logits, pinb_s], 1)
             inb_end_logits = torch.cat([inb_end_logits, pinb_e], 1)
         ones = torch.ones(b, device=start.device)
-        neg_loss = 0.5 * (_masked_ce(inb_start_logits, rows, ones)
-                          + _masked_ce(inb_end_logits, rows, ones))
+        labels = rows + label_offset
+        neg_loss = 0.5 * (_masked_ce(inb_start_logits, labels, ones)
+                          + _masked_ce(inb_end_logits, labels, ones))
         total = total + loss_cfg.lambda_neg * neg_loss
         aux["neg_loss"] = neg_loss
 

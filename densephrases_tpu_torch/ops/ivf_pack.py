@@ -311,10 +311,15 @@ def pack_budget_table(list_offsets: np.ndarray, cap: int) -> np.ndarray:
     return np.cumsum(nblk)
 
 
-def probe(q_raw, centroids, nprobe: int):
+def probe(q_raw, centroids, nprobe: int, nlist_valid=None):
     """Max-inner-product probe: bf16 operands, fp32 sums, the nprobe best
-    lists per query (ties to the lower list id). → [B, nprobe] int64."""
+    lists per query (ties to the lower list id). → [B, nprobe] int64.
+    nlist_valid: centroid rows at or past it are padding (a mesh shard
+    padded to the largest nlist) and never probed (ref ivf_pack.py:213-215)."""
     c_scores = _bf16(q_raw) @ _bf16(centroids).T
+    if nlist_valid is not None:
+        col = torch.arange(centroids.shape[0], device=c_scores.device)
+        c_scores = c_scores.masked_fill(col >= nlist_valid, NEG_INF)
     return _top_k(c_scores, nprobe)[1]
 
 
@@ -357,12 +362,14 @@ def _valid_rows(blk, total, n_real: int):
 
 
 def packed_union_scan(q_raw, centroids, list_offsets, codes, row_perm,
-                      offset, scale, q_score=None, *, top_k: int,
-                      nprobe: int, cap: int, budget: int, n_real: int,
-                      sq4: bool = False):
+                      offset, scale, nlist_valid=None, q_score=None, *,
+                      top_k: int, nprobe: int, cap: int, budget: int,
+                      n_real: int, sq4: bool = False):
     """SQ8 / SQ4 IVF search over exact-length list reads (kernel C).
 
-    q_raw [B, D] f32 probes; q_score (optional) are the scoring-space
+    nlist_valid (optional): centroid rows at or past it are padding and are
+    never probed (``probe``). q_raw [B, D] f32 probes; q_score (optional)
+    are the scoring-space
     queries when they differ (trained per-dim SQ4: q / scale_vec, with
     ``offset`` the matching [D] bias vector and ``scale`` 1.0). codes
     [N_pad, Dc] int8 sorted by list; budget: the guard block budget (a
@@ -372,9 +379,9 @@ def packed_union_scan(q_raw, centroids, list_offsets, codes, row_perm,
         q_score = q_raw
     nlist = centroids.shape[0]
     pad_blk = codes.shape[0] // RB - 1
-    blk, total = block_table(probe(q_raw, centroids, nprobe), list_offsets,
-                             nlist=nlist, cap=cap, pad_blk=pad_blk,
-                             budget=budget)
+    blk, total = block_table(probe(q_raw, centroids, nprobe, nlist_valid),
+                             list_offsets, nlist=nlist, cap=cap,
+                             pad_blk=pad_blk, budget=budget)
     raw = pack_score(q_score.to(torch.bfloat16).contiguous(), codes, blk,
                      sq4=sq4)
     qsum = (q_score * offset).sum(-1)  # offset may be a [D] vector
@@ -400,18 +407,19 @@ def refine_int8(q_raw, vals, gids, refine_codes, offset: float, scale: float,
 
 
 def packed_pq_scan(q_raw, q_rot, centroids, list_offsets, codes, row_perm,
-                   pq_books, refine_codes, offset, scale, *, top_k: int,
-                   nprobe: int, cap: int, budget: int, n_real: int,
-                   scan_k: int, pq_residual: bool = False):
+                   pq_books, refine_codes, offset, scale, nlist_valid=None,
+                   *, top_k: int, nprobe: int, cap: int, budget: int,
+                   n_real: int, scan_k: int, pq_residual: bool = False):
     """PQ / OPQ IVF search (kernel D): probe → block table → ADC scores →
     the residual ``q·c`` of each row's own list → exact top-scan_k →
     optional int8 refine. q_rot: the queries in code space (OPQ: q @ R).
+    nlist_valid: as in ``packed_union_scan``.
     Returns (vals [B, K] f32, gids [B, K] int32)."""
     nlist = centroids.shape[0]
     pad_blk = codes.shape[0] // RB - 1
-    blk, total = block_table(probe(q_raw, centroids, nprobe), list_offsets,
-                             nlist=nlist, cap=cap, pad_blk=pad_blk,
-                             budget=budget)
+    blk, total = block_table(probe(q_raw, centroids, nprobe, nlist_valid),
+                             list_offsets, nlist=nlist, cap=cap,
+                             pad_blk=pad_blk, budget=budget)
     lut = pq_lut(pq_books, q_rot).to(torch.bfloat16).contiguous()
     raw = pq_pack_score(lut, codes, blk)
     src, valid = _valid_rows(blk, total, n_real)

@@ -20,7 +20,22 @@ writes the same update out in torch, step for step:
 
 The step updates the parameters and the optimizer state in place (torch
 modules are mutable) and returns the state with the new step count and
-pre-batch ring. Data-parallel training over a mesh is not ported.
+pre-batch ring.
+
+Data-parallel training (``make_train_step(..., mesh=...)``, the reference's
+``shard_map`` step, train/rc.py:134-194) runs one process a rank, each on
+its contiguous slice of the global batch (``shard_batch``). The step takes
+its gradients with ``torch.autograd.grad``, so no ``DistributedDataParallel``
+wrapper is used (its hooks would never fire): the gradients are averaged
+over the ranks as one flat buffer (JAX's ``pmean``) before the frozen
+parameters are dropped and the norm is clipped, and the loss is averaged
+the same way; the per-part losses stay the rank's own, as the reference's
+are device 0's. Each rank keeps its own pre-batch ring of its local golds
+(the reference returns its rings under a replicated spec with the check
+off, so a host read sees device 0's). Rank r > 0 draws its dropout from
+(the step generator's seed, r), the counterpart of ``fold_in(rng,
+axis_index)``; rank 0 draws from the step generator itself, so a mesh of
+one equals the single-device step.
 
 ``AdamW`` also expresses the other trainers' optimizers: plain
 ``optax.adamw`` (no clipping, decay on every parameter) for query-side
@@ -45,6 +60,7 @@ from densephrases_tpu_torch.models.encoder import (
     rc_loss,
 )
 from densephrases_tpu_torch.models.from_jax import reference_path
+from densephrases_tpu_torch.parallel import pmean, shard_put
 
 LOSS_PARTS = ("single_loss", "neg_loss", "filter_loss", "kl_loss")
 
@@ -196,7 +212,7 @@ def create_train_state(params, optimizer: AdamW, pbn_size: int = 0,
 def make_train_step(config: BertConfig, loss_cfg: RCLossConfig,
                     optimizer: AdamW, mesh=None, dp_axis: str = "dp",
                     attn_impl: str = "auto", frozen_word_embeddings: bool = True,
-                    remat: str = "full",
+                    remat: str = "full", *,
                     compute_dtype: torch.dtype = torch.bfloat16):
     """Build the train step ``step(state, batch, generator) -> (state,
     metrics)``. ``batch`` is a dict of tensors on the params' device;
@@ -204,10 +220,14 @@ def make_train_step(config: BertConfig, loss_cfg: RCLossConfig,
     seeds. ``metrics`` holds 0-dim device tensors (no host sync).
 
     frozen_word_embeddings: the reference freezes word embeddings during RC
-    training (ref: train_rc.py:65-70)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported")
+    training (ref: train_rc.py:65-70).
+
+    mesh: a ``parallel.Mesh`` for data-parallel training: every rank calls
+    the step with its ``shard_batch`` slice and the same generator; the
+    loss config's ``axis_name`` must be the mesh axis (global negatives)."""
+    if mesh is not None and loss_cfg.axis_name != dp_axis:
+        raise ValueError("loss_cfg.axis_name must match the mesh dp axis "
+                         "for global negatives")
 
     def trainable(params) -> Dict[str, torch.Tensor]:
         named = _optimized(params)
@@ -218,20 +238,27 @@ def make_train_step(config: BertConfig, loss_cfg: RCLossConfig,
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator]):
         named = trainable(state.params)
+        if mesh is not None and generator is not None:
+            generator = rank_generator(generator, mesh.rank)
         total, aux = rc_loss(
             state.params, config, batch, loss_cfg, pre_batch=state.pre_batch,
             deterministic=False, dropout=generator, attn_impl=attn_impl,
             remat=remat, compute_dtype=compute_dtype)
         grads = torch.autograd.grad(total, list(named.values()),
                                     allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for (n, p), g in zip(named.items(), grads)}
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(named.values(), grads)]
+        loss = total.detach()
+        if mesh is not None:
+            *grads, loss = pmean(grads + [loss[None]], mesh)
+            loss = loss[0]
+        grads = dict(zip(named, grads))
         grad_norm = optimizer.update(grads, state.opt_state, named)
         new_pb = state.pre_batch
         if state.pre_batch is not None:
             new_pb = pre_batch_update(state.pre_batch, aux["gold_start"],
                                       aux["gold_end"])
-        metrics = {"loss": total.detach(), "grad_norm": grad_norm}
+        metrics = {"loss": loss, "grad_norm": grad_norm}
         for k in LOSS_PARTS:
             if k in aux:
                 metrics[k] = aux[k].detach()
@@ -239,3 +266,20 @@ def make_train_step(config: BertConfig, loss_cfg: RCLossConfig,
                           new_pb), metrics
 
     return step
+
+
+def rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:
+    """Rank r's dropout generator for one step: the step's own for rank 0,
+    else one seeded from (the step generator's seed, r)."""
+    if rank == 0:
+        return generator
+    state = np.random.SeedSequence([generator.initial_seed(), rank]) \
+        .generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0] >> np.uint64(1)))
+
+
+def shard_batch(batch, mesh, dp_axis: str = "dp"):
+    """This rank's contiguous slice ``[r*b, (r+1)*b)`` of a global host
+    batch, on the rank's device: the rows ``NamedSharding(P(dp_axis))``
+    gives a device (not ``DistributedSampler``'s strided split)."""
+    return {k: shard_put(v, mesh, dp_axis) for k, v in batch.items()}

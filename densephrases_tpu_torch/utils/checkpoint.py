@@ -6,6 +6,10 @@ whole ``TrainState`` (params, optimizer moments and count, step, pre-batch
 ring) or bare params, so resume is exact, the pre-batch ring included.
 Tensors are saved from the host and restored onto the template's device.
 The reference's orbax saves are not read (queued in ROADMAP).
+
+Under data-parallel training (a process group of several ranks) rank 0
+alone writes, with its own pre-batch ring, and every rank waits at a
+barrier until the file is in place; every rank restores.
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ import os
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
+
+from densephrases_tpu_torch.parallel import rank_and_size
 
 STATE_FILE = "state.pt"
 
@@ -41,6 +48,15 @@ def save_checkpoint(path: str, state: Any, step: Optional[int] = None) -> str:
     path = os.path.abspath(path)
     step = int(step if step is not None else getattr(state, "step", 0))
     target = os.path.join(path, f"step_{step}")
+    rank, size = rank_and_size()
+    if rank == 0:
+        _write(target, state)
+    if size > 1:
+        dist.barrier()
+    return target
+
+
+def _write(target: str, state: Any):
     os.makedirs(target, exist_ok=True)
     if isinstance(state, torch.nn.Module):
         blob = {"params": _host(state.state_dict())}
@@ -53,7 +69,6 @@ def save_checkpoint(path: str, state: Any, step: Optional[int] = None) -> str:
     tmp = os.path.join(target, f".{STATE_FILE}.{os.getpid()}.tmp")
     torch.save(blob, tmp)
     os.replace(tmp, os.path.join(target, STATE_FILE))
-    return target
 
 
 def latest_checkpoint(path: str) -> Optional[str]:

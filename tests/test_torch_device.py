@@ -22,7 +22,10 @@ from densephrases_tpu_torch.cli import (
     train_query,
     train_rc,
 )
-from densephrases_tpu_torch.index import ivf, search
+from densephrases_tpu_torch import parallel
+from densephrases_tpu_torch.index import ivf, search, sharded
+from densephrases_tpu_torch.parallel import multihost
+from densephrases_tpu_torch.tools import parallel_dump
 from densephrases_tpu_torch.index.flat import FlatIndex
 from densephrases_tpu_torch.index.ivf import IVFIndex
 from densephrases_tpu_torch.index.tiered import TieredFlatIndex, TieredIVF
@@ -108,7 +111,9 @@ def _no_gpu(monkeypatch):
                                   "init_cross_params", "load_encoder",
                                   "TieredIVF.load", "TieredFlatIndex",
                                   "init_mlm_params", "pretrain_mlm",
-                                  "train_cross_encoder"])
+                                  "train_cross_encoder", "make_mesh",
+                                  "global_mesh", "ShardedIVF.build",
+                                  "run_parallel_dump"])
 def test_no_device_without_a_gpu_raises(monkeypatch, call, tmp_path):
     _no_gpu(monkeypatch)
     cfg = BertConfig.tiny()
@@ -133,6 +138,18 @@ def test_no_device_without_a_gpu_raises(monkeypatch, call, tmp_path):
             mlm.pretrain_mlm(["w"], None, cfg, steps=1)
         elif call == "train_cross_encoder":
             cross_encoder.train_cross_encoder(cfg, [])
+        elif call == "make_mesh":  # this rank's card
+            parallel.make_mesh()
+        elif call == "global_mesh":
+            multihost.global_mesh()
+        elif call == "ShardedIVF.build":  # every card
+            sharded.ShardedIVF.build(np.zeros((64, 8), np.int8),
+                                     ivf.IVFConfig(num_clusters=4))
+        elif call == "run_parallel_dump":  # a worker a card
+            (tmp_path / "data").mkdir()
+            parallel_dump.run_parallel_dump(
+                str(tmp_path / "data"), str(tmp_path / "dump"), "enc",
+                dry_run=True)
         else:
             common.load_encoder(draft=True)
 

@@ -2,17 +2,19 @@
 indexes the reference built and saved: decode-mode PQ serving (a PQ / OPQ
 index with no int8 refine), the host refine tier, the query rotation
 (``MIPS.R``), ``vecs_on_device``, the int4 flat index, ``MIPS``'s other
-constructor options, the reference's build parameters, and the unported
-ones that raise."""
+constructor options, the reference's build parameters, and the mesh path
+at one rank."""
 
 import os
 import pickle
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh as JaxMesh
 
 from densephrases_tpu.index.flat import FlatIndex as JaxFlatIndex
 from densephrases_tpu.index.ivf import IVFConfig as JaxIVFConfig
@@ -30,6 +32,7 @@ from densephrases_tpu_torch.index.search import MIPS
 from densephrases_tpu_torch.index.store import PhraseStore
 from densephrases_tpu_torch.ops.kmeans import kmeans
 from densephrases_tpu_torch.ops.pq import unpack_nibbles_dev
+from densephrases_tpu_torch.parallel import make_mesh
 
 DIM, NLIST = 64, 32
 # span scores are O(10) sums of bf16-rounded products (stage 1: the bf16
@@ -456,13 +459,32 @@ def test_mips_options_follow_reference(stores, monkeypatch):
 
 @pytest.mark.parametrize("call", ["MIPS mesh", "FlatIndex mesh"])
 def test_unported_parameters_raise(stores, call):
-    _, pstore = stores
+    """``mesh``, once refused, is ported: by position, a mesh of one (a
+    process in no group) serves as the reference's one-device mesh does.
+    Several ranks: tests/test_torch_parallel.py."""
+    jstore, pstore = stores
     codes = np.asarray(pstore.vecs)
-    with pytest.raises(NotImplementedError):
-        if call == "MIPS mesh":
-            MIPS(pstore, None, None, object(), device="cpu")
-        else:
-            FlatIndex(codes, -2.0, 20.0, object(), device="cpu")
+    mesh = make_mesh(axis="shard", devices=["cpu"])
+    jmesh = JaxMesh(np.array(jax.devices("cpu")[:1]), ("shard",))
+    if call == "MIPS mesh":
+        q = _queries(jstore)
+        got = MIPS(pstore, None, None, mesh).search(q, top_k=4)
+        want = JaxMIPS(jstore, None, None, jmesh).search(q, top_k=4)
+        key = lambda rs: [(r["doc_idx"], r["start_idx"], r["end_idx"])
+                          for r in rs]
+        assert [key(r) for r in got] == [key(r) for r in want]
+        np.testing.assert_allclose([r["score"] for rs in got for r in rs],
+                                   [r["score"] for rs in want for r in rs],
+                                   rtol=1e-5)
+    else:
+        q = np.random.default_rng(3).normal(size=(4, DIM)).astype(np.float32)
+        vals, ids = FlatIndex(codes, -2.0, 20.0, mesh).search(q, top_k=7)
+        ref_v, ref_i = JaxFlatIndex(codes, -2.0, 20.0, jmesh).search(
+            q, top_k=7)
+        np.testing.assert_array_equal(ids, np.asarray(ref_i))
+        np.testing.assert_allclose(vals, np.asarray(ref_v), rtol=1e-5)
+    with pytest.raises(ValueError, match="single-device"):
+        FlatIndex(codes, -2.0, 20.0, mesh, quant="int4")
 
 
 @pytest.mark.parametrize("call", ["build coarse_cache", "kmeans rounded"])

@@ -39,6 +39,11 @@ from densephrases_tpu.preprocess import wiki as jax_wiki
 from densephrases_tpu.train import cross_encoder as jax_cross
 from densephrases_tpu.train import mlm as jax_mlm
 from densephrases_tpu.train import query as jax_query
+from densephrases_tpu import parallel as jax_parallel
+from densephrases_tpu.index import sharded as jax_sharded
+from densephrases_tpu.parallel import multihost as jax_multihost
+from densephrases_tpu.tools import parallel_dump as jax_pdump
+from densephrases_tpu.train import rc as jax_rc
 from densephrases_tpu_torch.data import features as tfeat
 from densephrases_tpu_torch.data.tokenization import SPECIAL_TOKENS, WordPieceTokenizer
 from densephrases_tpu_torch.data.truecase import TrueCaser
@@ -64,6 +69,11 @@ from densephrases_tpu_torch.preprocess import wiki as port_wiki
 from densephrases_tpu_torch.train import cross_encoder as port_cross
 from densephrases_tpu_torch.train import mlm as port_mlm
 from densephrases_tpu_torch.train import query as port_query
+from densephrases_tpu_torch import parallel as port_parallel
+from densephrases_tpu_torch.index import sharded as port_sharded
+from densephrases_tpu_torch.parallel import multihost as port_multihost
+from densephrases_tpu_torch.tools import parallel_dump as port_pdump
+from densephrases_tpu_torch.train import rc as port_rc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = [f"w{i}" for i in range(200)] + ["paris", "river", "école"]
@@ -263,7 +273,11 @@ def test_import_leaves_jax_out():
             "densephrases_tpu_torch.preprocess.datasets, "
             "densephrases_tpu_torch.preprocess.offline_corpus, "
             "densephrases_tpu_torch.tools.store_tools, "
-            "densephrases_tpu_torch.data.lazy\n"
+            "densephrases_tpu_torch.data.lazy, "
+            "densephrases_tpu_torch.parallel, "
+            "densephrases_tpu_torch.parallel.multihost, "
+            "densephrases_tpu_torch.index.sharded, "
+            "densephrases_tpu_torch.tools.parallel_dump\n"
             "from densephrases_tpu_torch.preprocess.offline_corpus import "
             "package_roots\n"
             "package_roots()\n"
@@ -417,6 +431,24 @@ SLICE_8 = [
     (port_lazy, jax_lazy, ["read_qa_jsonl"]),
 ]
 
+# the scale-out path: meshes, multi-process shards, sharded IVF, the data-
+# parallel step, the parallel dump
+SLICE_9 = [
+    (port_parallel, jax_parallel, ["make_mesh", "shard_put",
+                                   "replicate_put"]),
+    (port_multihost, jax_multihost, ["init_multihost", "global_mesh",
+                                     "shard_layout", "process_row_range",
+                                     "flat_from_process_shards",
+                                     "broadcast_queries"]),
+    (port_sharded.ShardedIVF, jax_sharded.ShardedIVF,
+     ["__init__", "build", "search"]),
+    (port_sharded.MeshShardedIVF, jax_sharded.MeshShardedIVF,
+     ["build", "search", "_shared_int4_ranges"]),
+    (port_rc, jax_rc, ["make_train_step", "shard_batch"]),
+    (port_pdump, jax_pdump, ["make_ranges", "bin_by_size",
+                             "run_parallel_dump", "merge_shards"]),
+]
+
 
 @pytest.mark.parametrize("port_fn,ref_fn", [
     (MIPS.search, JaxMIPS.search),
@@ -435,14 +467,14 @@ SLICE_8 = [
     (IVFIndex.load, JaxIVFIndex.load),
     (port_kmeans.kmeans, jax_kmeans.kmeans),
     *[(getattr(port, name), getattr(ref, name))
-      for port, ref, names in SLICE_8 for name in names],
+      for port, ref, names in SLICE_8 + SLICE_9 for name in names],
 ], ids=["MIPS.search", "MIPS.search_dense", "FlatIndex.search",
         "IVFIndex.search", "IVFIndex.search_union", "DensePhrases.search",
         "DensePhrases.__init__", "MIPS.__init__", "MIPS.search_phrase",
         "FlatIndex.__init__", "IVFIndex.__init__", "IVFIndex.build",
         "IVFIndex.build_coarse", "IVFIndex.load", "kmeans",
         *[f"{port.__name__.rsplit('.', 1)[-1]}.{name}"
-          for port, ref, names in SLICE_8 for name in names]])
+          for port, ref, names in SLICE_8 + SLICE_9 for name in names]])
 def test_signatures_follow_reference(port_fn, ref_fn):
     # positional arguments mean the same in both packages: the port's
     # positional parameters are the reference's, in order (the port may
@@ -471,6 +503,9 @@ DELIBERATE = {
                           jax_cross.init_cross_params),
     "embed_query": (port_encoder.embed_query, jax_encoder.embed_query),
     "embed_phrase": (port_encoder.embed_phrase, jax_encoder.embed_phrase),
+    # one process a rank: each rank passes its own shard, not all of them
+    "MeshShardedIVF.__init__": (port_sharded.MeshShardedIVF.__init__,
+                                jax_sharded.MeshShardedIVF.__init__),
 }
 
 
@@ -487,6 +522,9 @@ def test_deliberate_signature_exceptions(name):
     elif name == "mlm_loss":
         assert ref[:4] == port[:4] and ref[4:] == ["rng"]
         assert port[4:] == ["draws"]
+    elif name == "MeshShardedIVF.__init__":
+        assert ref[0] == "sub_indexes" and port[0] == "sub_index"
+        assert port[1:] == ref[1:]
     else:
         assert ref[:2] == ["params", "config"] and "config" not in port
         assert port[:2] == ["params", "input_ids"]

@@ -416,11 +416,28 @@ def test_remat_full_equals_none_with_dropout():
 
 
 def test_remat_dots_is_not_ported():
-    _, tcfg = _cfgs()
-    params = init_encoder_params(tcfg, device="cpu")
-    ids = torch.zeros(2, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="dots"):
-        params.phrase(ids, torch.ones_like(ids), remat="dots")
+    """remat "dots", once refused, is ported: it keeps the products and
+    recomputes the rest, and under dropout its loss and every gradient
+    equal "none"'s bit for bit (the reference's "dots" gradients:
+    tests/test_torch_parallel.py)."""
+    _, tcfg = _cfgs(dropout=0.1)
+    results = {}
+    for remat in ("none", "dots"):
+        params = init_encoder_params(tcfg, device="cpu", with_teacher=True)
+        batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
+        total, _ = rc_loss(params, tcfg, batch, RCLossConfig(**LOSS_CFG),
+                           dropout=torch.Generator().manual_seed(7),
+                           remat=remat, compute_dtype=torch.float32)
+        total.backward()
+        results[remat] = [float(total.detach())] + [
+            p.grad.clone() for p in params.parameters() if p.grad is not None]
+    assert results["dots"][0] == results["none"][0]
+    assert len(results["dots"]) == len(results["none"])
+    assert all(torch.equal(a, b) for a, b in
+               zip(results["dots"][1:], results["none"][1:]))
+    with pytest.raises(ValueError, match="remat"):
+        params.phrase(batch["input_ids"], batch["attention_mask"],
+                      remat="some")
 
 
 def test_resume_equals_uninterrupted_run(tmp_path):
