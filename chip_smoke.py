@@ -77,6 +77,19 @@ written kernel on that path against its plain PyTorch version:
                  (3 steps "full", a resume to 5 under "dots"); d. the
                  parallel dump (2 workers) against phase 7's dump, byte for
                  byte. NCCL refuses two ranks on one GPU, hence gloo there
+  11. demo       the serving entry point over HTTP on phase 7's encoder,
+                 dump and indexes: a. the index app (fused route) through
+                 ``serve()``, ``eval_request`` on 512 questions at batch 64,
+                 q/s beside ``FusedServer.search`` in this process, answers
+                 equal to it and to ``DensePhrases.search`` for the four
+                 units; b. two-process mode (``q_serve`` + ``p_serve`` over
+                 the SQ8 and OPQ96 indexes, kernels C and D) against
+                 ``MIPS.search``; c. the reader app over phase 9's teacher
+                 against ``read_passages``; d. ``python -m ...cli.run_demo``
+                 ``single_serve`` as a subprocess and its ``eval_request``
+                 (the same EM as a's); e. the native store runtime (built by
+                 g++): ``preload_metas`` against per-doc ``meta()`` and
+                 plain zlib, ``benchmark_store_read``
 
 Kernel A's launch counter is zeroed right before phase 3 and read after
 phase 4's main-path work; kernels C and D's are zeroed right before phase 5
@@ -86,8 +99,11 @@ phase 7 and read at its end; A and C's right before phase 8's drivers
 (part g) and read after them; A, B and D's right before each part of phase
 9 and read right after it; A-D's in this process and in every rank of
 phase 10 from its start to its end (the dump workers, separate driver
-processes, are not counted); phases 6-10 must equal the counts their paths
-imply. A kernel of a path that never launched fails the run.
+processes, are not counted); A, C and D's from the start of phase 11 to
+its end, leaving out the in-process runs its served answers are compared
+with (the ``run_demo`` subprocesses are not counted); phases 6-11 must
+equal the counts their paths imply. A kernel of a path that never
+launched fails the run.
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when there is no CUDA device. The second-last
 lines are a JSON object of per-kernel results and the card's
@@ -105,10 +121,14 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import torch
@@ -282,6 +302,17 @@ SO_TOWERS = ("phrase", "query_start", "query_end", "filter")
 # 700 W): a kernel's bound is the larger of the bytes it must move over the
 # memory rate and its operations over the peak rate for their type (bf16
 # products on the tensor cores; fp32 products and adds on the CUDA cores)
+# phase 11: eval_request's synthetic questions at batch DEMO_BATCH, top-k
+# DEMO_TOP_K, 5 warmup batches and DEMO_TIMED_BATCHES timed ones (q/s on
+# the host clock wants a window of seconds, not of a few requests); the
+# two-process servers answer the first DEMO_IVF_BATCHES batches; the
+# run_demo subprocesses get DEMO_CLI_TIMEOUT seconds each; the native
+# preload is also timed on a metadata-only store of DEMO_META_DOCS docs
+DEMO_BATCH, DEMO_TOP_K, DEMO_TIMED_BATCHES = 64, 10, 64
+DEMO_QUESTIONS = DEMO_BATCH * (5 + DEMO_TIMED_BATCHES)
+DEMO_IVF_BATCHES = 8
+DEMO_CLI_TIMEOUT = 300
+DEMO_META_DOCS = 65536
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -2508,6 +2539,440 @@ def phase_scale_out(tmp, store, model, config, docs, rng):
     return counts
 
 
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_for_port(port, timeout, proc=None):
+    """Wait until something accepts connections on ``port``; fail at the
+    timeout or when ``proc`` (a server subprocess) exits first."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"the server process exited ({proc.returncode})"
+                                 f" before it served on :{port}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=0.5).close()
+            return
+        except OSError:
+            time.sleep(0.2)
+    raise AssertionError(f"nothing served on :{port} within {timeout} s")
+
+
+@contextlib.contextmanager
+def serving(app, serve):
+    """``serve(app, port)`` (the drivers' blocking loop) in a thread on a
+    free port; yields the port, and shuts the server down on every exit."""
+    started = []
+    port = free_port()
+    thread = threading.Thread(target=serve, args=(app, port),
+                              kwargs={"started": started.append}, daemon=True)
+    thread.start()
+    try:
+        wait_for_port(port, 30)
+        yield port
+    finally:
+        for server in started:
+            server.shutdown()
+        thread.join(timeout=30)
+        if thread.is_alive():
+            raise AssertionError(f"the server on :{port} did not stop")
+
+
+def post_json(port, path, body):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def get_status(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as resp:
+        resp.read()
+        return resp.status
+
+
+@contextlib.contextmanager
+def uncounted(*kernels):
+    """Leave the launch counters as they were: for the in-process runs that
+    the served answers are compared with."""
+    before = [k.launches for k in kernels]
+    try:
+        yield
+    finally:
+        for k, n in zip(kernels, before):
+            k.launches = n
+
+
+def timed_posts(port, batches, **body):
+    """POST each batch to /batch_api: (answers per batch, median ms)."""
+    outs, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        outs.append(post_json(port, "/batch_api", {"query": batch, **body}))
+        times.append(1e3 * (time.perf_counter() - t0))
+    return outs, float(np.median(times))
+
+
+def same_served(got, want_rets, top_k):
+    """A /batch_api answer (JSON) equals in-process results exactly: the
+    answer list and each hit's answer, title, offsets and score."""
+    want = [ret[:top_k] for ret in want_rets]
+    return got["answers"] == [[r["answer"] for r in ret] for ret in want] \
+        and [[(h["answer"], h["title"], h["start_pos"], h["end_pos"],
+               h["score"]) for h in ret] for ret in got["ret"]] == \
+        [[(r["answer"], r["title"], r["start_pos"], r["end_pos"], r["score"])
+          for r in ret] for ret in want]
+
+
+def meta_bytes(metas):
+    """Every field of a list of ``DocMeta``, as bytes where it is an array."""
+    return [(m.doc_id, m.title, m.context, m.word2char_start.tobytes(),
+             m.word2char_end.tobytes(), m.f2o_start.tobytes()) for m in metas]
+
+
+def same_metas(a, b):
+    """Two lists of ``DocMeta`` byte-equal, one doc at a time (for a store
+    whose ``meta_bytes`` would not fit twice in memory)."""
+    return len(a) == len(b) and all(
+        meta_bytes([x]) == meta_bytes([y]) for x, y in zip(a, b))
+
+
+def same_answers(got, want):
+    """Two /batch_api bodies with the same answers and hits (their ``time``
+    keys differ)."""
+    return got["answers"] == want["answers"] and got["ret"] == want["ret"]
+
+
+def phase_demo(tmp, config, docs, rng, smi):
+    """Phase 11: the reference's serving entry point end to end on the
+    card, over phase 7's encoder, dump and indexes.
+
+    a. ``make_index_app`` (the fused route over the flat int8 index) served
+       through ``serve()`` in a thread; ``eval_request`` on DEMO_QUESTIONS
+       synthetic questions at batch DEMO_BATCH (5 warmup batches, then
+       DEMO_TIMED_BATCHES timed), q/s and ms a batch beside
+       ``FusedServer.search`` in this process on the same batches; each
+       /batch_api answer equal to ``FusedServer.search``'s,
+       the four units to ``DensePhrases.search``'s; /api, /get_examples and
+       the page return 200;
+    b. two-process mode in two threads: a ``q_serve`` app and ``p_serve``
+       index apps (``RemoteQueryEncoder``) over phase 7's SQ8 and OPQ96
+       indexes (kernels C and D) on the first DEMO_IVF_BATCHES batches,
+       equal to ``MIPS.search`` in this process on the same vectors;
+    c. the reader app (``/single_api``) on READER_PAIRS pairs at L 384 over
+       phase 9's teacher, equal to ``read_passages`` in this process;
+    d. ``python -m densephrases_tpu_torch.cli.run_demo --demo_mode
+       single_serve`` as a subprocess: its answers to every batch equal
+       a's; then ``--demo_mode eval_request`` against it: the same EM as
+       a's (the subprocesses' launches are not counted);
+    e. the native store runtime: ``available()``, ``preload_metas`` through
+       it byte-equal to per-doc ``meta()`` on phase 3's store and phase 7's
+       dump and to plain zlib on a metadata-only store of DEMO_META_DOCS
+       docs (phase 3's doc metadata repeated, one vector a doc), its time
+       against plain zlib on each, ``benchmark_store_read``.
+
+    Kernels A, C and D count from zero at the phase's start to its end; the
+    in-process runs that the served answers are compared with are not
+    counted. The counts must equal what the served requests imply. Returns
+    them."""
+    from densephrases_tpu_torch import native
+    from densephrases_tpu_torch.cli.eval_phrase_retrieval import load_model
+    from densephrases_tpu_torch.eval.reader import read_passages
+    from densephrases_tpu_torch.data.qa import load_rc_examples
+    from densephrases_tpu_torch.data.tokenization import WordPieceTokenizer
+    from densephrases_tpu_torch.index.ivf import IVFIndex
+    from densephrases_tpu_torch.index.search import MIPS
+    from densephrases_tpu_torch.index.store import (
+        DocMeta, PhraseStore, StoreWriter)
+    from densephrases_tpu_torch.model import DensePhrases
+    from densephrases_tpu_torch.models.attention import ATTENTION_FWD
+    from densephrases_tpu_torch.ops.ivf_pack import (
+        IVF_PACK_SCORE, PQ_PACK_SCORE)
+    from densephrases_tpu_torch.options import Options
+    from densephrases_tpu_torch.serve import server
+    from densephrases_tpu_torch.serve.fused import FusedServer
+    from densephrases_tpu_torch.tools.benchmark import benchmark_store_read
+    from densephrases_tpu_torch.train.cross_encoder import init_cross_params
+    from densephrases_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "demo")
+    os.makedirs(root)
+    off = os.path.join(tmp, "offline")
+    enc, dump = os.path.join(off, "enc"), os.path.join(off, "dump")
+    qa_path = os.path.join(root, "qa.json")
+    qa = synthetic_qa(rng, docs, DEMO_QUESTIONS)
+    with open(qa_path, "w") as f:
+        json.dump(qa, f)
+    questions = [r["question"] for r in qa["data"]]
+    pairs = [(r["question"], r["answers"]) for r in qa["data"]]
+    batches = [questions[i:i + DEMO_BATCH]
+               for i in range(0, len(questions), DEMO_BATCH)]
+    layers = config.num_hidden_layers
+    kernels = {"A": ATTENTION_FWD, "C": IVF_PACK_SCORE, "D": PQ_PACK_SCORE}
+    comparing = lambda: uncounted(*kernels.values())
+    want = {"A": 0, "C": 0, "D": 0}
+    flags = ["--load_dir", enc, "--dump_dir", dump, "--index_name", "flat",
+             "--max_query_length", str(MAX_QUERY_LENGTH), "--top_k",
+             str(DEMO_TOP_K)]
+    for kernel in kernels.values():
+        kernel.launches = 0
+
+    # d starts first: the CLI server loads in its own process meanwhile
+    cli_port = free_port()
+    cli_log = open(os.path.join(root, "run_demo.log"), "w")
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "densephrases_tpu_torch.cli.run_demo",
+         "--demo_mode", "single_serve", "--index_port", str(cli_port),
+         *flags], cwd=HERE, stdout=cli_log, stderr=subprocess.STDOUT)
+    try:
+        # ---- a. the index app through serve(): the fused route
+        t0 = time.perf_counter()
+        opts = Options().parse(flags, groups=["model", "index", "retrieval",
+                                              "demo", "data"])
+        model = load_model(opts, device=DEVICE)
+        load_s = time.perf_counter() - t0
+        fused = FusedServer(model)
+        app = server.make_index_app(model, default_top_k=DEMO_TOP_K,
+                                    examples=questions[:3])
+        wait_for_port(cli_port, DEMO_CLI_TIMEOUT, cli)
+        with serving(app, server.serve) as port:
+            metrics = server.eval_request("127.0.0.1", port, pairs,
+                                          batch_size=DEMO_BATCH,
+                                          top_k=DEMO_TOP_K)
+            want["A"] += len(batches) * 2 * layers
+            a_served, post_ms = timed_posts(port, batches, top_k=DEMO_TOP_K)
+            want["A"] += len(batches) * 2 * layers
+            units = {unit: post_json(port, "/batch_api", {
+                "query": batches[0][:8], "top_k": 5, "retrieval_unit": unit})
+                for unit in ("phrase", "sentence", "paragraph", "document")}
+            want["A"] += 4 * 2 * layers
+            status = [get_status(port, "/api?query=" + urllib.parse.quote(
+                questions[0])), get_status(port, "/get_examples"),
+                get_status(port, "/")]
+            want["A"] += 2 * layers
+        with comparing():
+            fused_ms = float(np.median([host_ms(
+                lambda b=b: fused.search(b, top_k=DEMO_TOP_K), reps=1)
+                for b in batches]))
+            same = [same_served(got, fused.search(b, top_k=DEMO_TOP_K),
+                                DEMO_TOP_K)
+                    for got, b in zip(a_served, batches)]
+            unit_gap, unit_same = 0.0, True
+            for unit, got in units.items():
+                answers, rets = model.search(batches[0][:8],
+                                             retrieval_unit=unit, top_k=5,
+                                             return_meta=True)
+                unit_same &= got["answers"] == answers
+                unit_gap = max([unit_gap] + [
+                    abs(h["score"] - r["score"]) / max(1.0, abs(r["score"]))
+                    for hs, rs in zip(got["ret"], rets)
+                    for h, r in zip(hs, rs)])
+        # the HTTP front's host work on one served batch: the server's
+        # json.dumps and the client's json.loads of the /batch_api body,
+        # and of the query vectors that p_serve fetches from q_serve (b)
+        body_text = json.dumps(a_served[0], default=server._json_default)
+        with comparing():
+            vec_text = json.dumps({"vec": model.query2vec(
+                batches[0]).float().cpu().tolist()})
+        json_ms = {name: (host_ms(lambda t=text: json.dumps(json.loads(t))),
+                          host_ms(lambda t=text: json.loads(t)), len(text))
+                   for name, text in (("batch_api", body_text),
+                                      ("query2vec", vec_text))}
+        qps = metrics["qps"]
+        log("11 demo", part="a index_app", questions=len(questions),
+            batch=DEMO_BATCH, batches=len(batches), warmup_batches=5,
+            demo_qps=qps, ms_per_batch=1e3 * DEMO_BATCH / qps,
+            post_ms_per_batch_median=post_ms,
+            fused_in_process_ms_per_batch_median=fused_ms,
+            em_top1=metrics["em_top1"], em_topk=metrics["em_topk"],
+            model_load_s=round(load_s, 3), card=repr(smi))
+        for name, (round_trip, loads, size) in json_ms.items():
+            log("11 demo", part="a json", body=name, bytes=size,
+                dumps_plus_loads_ms=round_trip, loads_ms=loads)
+        log("11 demo", part="a checks", batches_equal_fused=sum(same),
+            units_equal=unit_same, units_max_rel_score_gap=unit_gap,
+            tol=SCORE_RTOL, statuses=status)
+        if not all(same) or not unit_same or unit_gap > SCORE_RTOL \
+                or status != [200, 200, 200] or not np.isfinite(qps):
+            raise AssertionError("phase 11a: the index app's answers differ "
+                                 "from the in-process ones")
+
+        # ---- b. two-process mode: q_serve + p_serve over SQ8 and OPQ96
+        ivf_ms, ivf_batches = {}, batches[:DEMO_IVF_BATCHES]
+        for fq, kernel in (("SQ8", "C"), ("OPQ96", "D")):
+            index = IVFIndex.load(os.path.join(
+                dump, "start", f"{IVF_CLUSTERS}_flat_{fq}"), device=DEVICE)
+            ivf_model = DensePhrases(model.params, model.config,
+                                     model.tokenizer,
+                                     MIPS(model.mips.store, index=index),
+                                     max_query_length=MAX_QUERY_LENGTH)
+            with serving(server.make_query_encoder_app(model),
+                         server.serve) as q_port:
+                remote = server.RemoteQueryEncoder("127.0.0.1", q_port)
+                p_app = server.make_index_app(ivf_model, DEMO_TOP_K,
+                                              remote_encoder=remote)
+                with serving(p_app, server.serve) as p_port:
+                    served, ivf_ms[fq] = timed_posts(p_port, ivf_batches,
+                                                     top_k=DEMO_TOP_K)
+            want["A"] += len(ivf_batches) * 2 * layers
+            want[kernel] += len(ivf_batches)
+            with comparing():
+                same = [same_served(got, ivf_model.mips.search(
+                    model.query2vec(b).float(), q_texts=b, top_k=DEMO_TOP_K,
+                    aggregate=True), DEMO_TOP_K)
+                    for got, b in zip(served, ivf_batches)]
+            log("11 demo", part="b two_process", index=fq,
+                batches_equal_in_process=sum(same), batches=len(ivf_batches),
+                ms_per_batch_median=ivf_ms[fq], flat_fused_post_ms=post_ms)
+            if not all(same):
+                raise AssertionError(f"phase 11b: p_serve over {fq} differs "
+                                     f"from MIPS.search in this process")
+            del ivf_model, index
+
+        # ---- c. the reader app over phase 9's teacher
+        teacher_dir = os.path.join(tmp, "trainers", "teacher")
+        teacher = restore_checkpoint(
+            os.path.join(teacher_dir, "params"),
+            init_cross_params(config, torch.Generator().manual_seed(0),
+                              device=DEVICE))
+        tok = WordPieceTokenizer.from_vocab_file(
+            os.path.join(teacher_dir, "vocab.txt"))
+        examples = load_rc_examples(os.path.join(tmp, "train.json"))
+        body = {"question": [e["question"] for e in examples[:READER_PAIRS]],
+                "passage": [e["context"] for e in examples[:READER_PAIRS]]}
+        with serving(server.make_reader_app(teacher, config, tok),
+                     server.serve) as port:
+            reader_ms = host_ms(lambda: post_json(port, "/single_api", body),
+                                reps=3)
+            got = post_json(port, "/single_api", body)
+        want["A"] += 5 * layers
+        with comparing():
+            ref = read_passages(teacher, config, tok, body["question"],
+                                body["passage"], max_length=READER_LEN)
+        same = got["ret"] == json.loads(json.dumps(ref))
+        log("11 demo", part="c reader_app", pairs=len(body["question"]),
+            max_length=READER_LEN, equal_in_process=same,
+            ms_per_request_median=reader_ms)
+        if not same:
+            raise AssertionError("phase 11c: /single_api differs from "
+                                 "read_passages in this process")
+        del teacher
+
+        # ---- d. the CLI: its server (started above) and its client; its
+        # answers to every batch equal a's (another process, the same
+        # weights, store and kernels)
+        cli_served, cli_ms = timed_posts(cli_port, batches, top_k=DEMO_TOP_K)
+        cli_equal = sum(same_answers(got, want_a)
+                        for got, want_a in zip(cli_served, a_served))
+        t0 = time.perf_counter()
+        client = subprocess.run(
+            [sys.executable, "-m", "densephrases_tpu_torch.cli.run_demo",
+             "--demo_mode", "eval_request", "--index_port", str(cli_port),
+             "--test_path", qa_path, "--eval_batch_size", str(DEMO_BATCH),
+             "--top_k", str(DEMO_TOP_K)], cwd=HERE, capture_output=True,
+            text=True, timeout=DEMO_CLI_TIMEOUT)
+        found = re.search(r"metrics: EM@1=([0-9.]+) qps=([0-9.a-z]+)",
+                          client.stderr + client.stdout)
+        log("11 demo", part="d run_demo_cli", returncode=client.returncode,
+            em_top1=found and found.group(1), qps=found and found.group(2),
+            em_top1_in_process_server=f"{metrics['em_top1']:.2f}",
+            batches_equal_to_a=cli_equal, batches=len(batches),
+            post_ms_per_batch_median=cli_ms,
+            seconds=round(time.perf_counter() - t0, 3))
+        if client.returncode != 0 or found is None \
+                or cli_equal != len(batches) \
+                or found.group(1) != f"{metrics['em_top1']:.2f}":
+            raise AssertionError(f"phase 11d: run_demo eval_request "
+                                 f"({client.returncode}): "
+                                 f"{client.stderr[-2000:]}")
+    except Exception:
+        cli_log.flush()
+        with open(cli_log.name) as f:
+            print(f"phase 11: the run_demo server's log ends:\n"
+                  f"{f.read()[-3000:]}", file=sys.stderr, flush=True)
+        raise
+    finally:
+        cli.terminate()
+        try:
+            cli.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            cli.kill()
+            cli.wait()
+        cli_log.close()
+
+    # ---- e. the native store runtime
+    if not native.available():
+        raise AssertionError("phase 11e: the native store runtime did not "
+                             "build (g++ and zlib.h)")
+    for name, path in (("phase 3 store", os.path.join(tmp, "store")),
+                       ("phase 7 dump", os.path.join(dump, "phrase"))):
+        fast = PhraseStore.load(path)
+        t0 = time.perf_counter()
+        fast.preload_metas()
+        native_ms = 1e3 * (time.perf_counter() - t0)
+        metas = PhraseStore.load(path).metas
+        t0 = time.perf_counter()
+        plain = [DocMeta.decompress(m) for m in metas]  # plain zlib, per doc
+        zlib_ms = 1e3 * (time.perf_counter() - t0)
+        each = PhraseStore.load(path)
+        equal = (meta_bytes(fast.meta(i) for i in range(fast.num_docs))
+                 == meta_bytes(each.meta(i) for i in range(each.num_docs))
+                 == meta_bytes(plain))
+        log("11 demo", part="e native", store=name, docs=fast.num_docs,
+            buffers=4 * fast.num_docs, preload_native_ms=native_ms,
+            preload_zlib_ms=zlib_ms, byte_equal=equal)
+        if not equal:
+            raise AssertionError(f"phase 11e: native preload_metas differs "
+                                 f"from per-doc meta() on the {name}")
+    # the same against plain zlib at a doc count where the threads have
+    # work: phase 3's doc metadata, still compressed, repeated under new ids
+    src = PhraseStore.load(os.path.join(tmp, "store"))
+    big = os.path.join(root, "meta_store")
+    t0 = time.perf_counter()
+    writer = StoreWriter(big, src.dim, src.offset, src.scale)
+    one_row = np.zeros((1, src.dim), np.int8)
+    for i in range(DEMO_META_DOCS):
+        writer.add_doc_raw(i, one_row, {
+            **src.meta_compressed(i % src.num_docs), "doc_id": i})
+    writer.finalize(build_sidecars=False)
+    write_s = time.perf_counter() - t0
+    fast = PhraseStore.load(big)
+    t0 = time.perf_counter()
+    fast.preload_metas()
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plain = [DocMeta.decompress(m) for m in fast.metas]
+    zlib_ms = 1e3 * (time.perf_counter() - t0)
+    equal = same_metas([fast.meta(i) for i in range(fast.num_docs)], plain)
+    raw_mb = sum(sum(m["sizes"].values()) for m in fast.metas) / 1e6
+    log("11 demo", part="e native", store="metadata only", docs=fast.num_docs,
+        buffers=4 * fast.num_docs, raw_mb=round(raw_mb, 1),
+        preload_native_ms=native_ms, preload_zlib_ms=zlib_ms,
+        native_speedup=zlib_ms / native_ms, byte_equal=equal,
+        write_s=round(write_s, 3), host_cores=os.cpu_count())
+    if not equal:
+        raise AssertionError("phase 11e: native preload_metas differs from "
+                             "plain zlib on the metadata-only store")
+    del fast, plain, src
+    shutil.rmtree(big)
+    log("11 demo", part="e benchmark_store_read",
+        **benchmark_store_read(os.path.join(tmp, "store"), seed=SEED))
+
+    counts = {k: kernel.launches for k, kernel in kernels.items()}
+    log("11 demo", **{f"{k.lower()}_launches": v for k, v in counts.items()},
+        **{f"{k.lower()}_expected": v for k, v in want.items()},
+        wall_s=round(time.perf_counter() - t_phase, 3))
+    if counts != want:
+        raise AssertionError(f"phase 11 launches {counts} != expected {want}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
@@ -2684,6 +3149,9 @@ def main():
     # ---- 10. scale-out (A-D counted in this process and in every rank)
     scale_out_launches = phase_scale_out(tmp, store, model, config, docs, rng)
 
+    # ---- 11. demo (A, C and D counters from zero; served requests only)
+    demo_launches = phase_demo(tmp, config, docs, rng, smi)
+
     def timing(row, *rows):
         """The line's numbers for one kernel from its headline row; every
         row's numbers beside them."""
@@ -2705,13 +3173,15 @@ def main():
         "replaces": "densephrases_tpu/models/attention.py:44",
         "launches": (main_path_launches + train_launches["A"]
                      + offline_launches["A"] + scale_launches["A"]
-                     + trainer_launches["A"] + scale_out_launches["A"]),
+                     + trainer_launches["A"] + scale_out_launches["A"]
+                     + demo_launches["A"]),
         "launches_by_path": {"dump_serve": main_path_launches,
                              "train": train_launches["A"],
                              "offline": offline_launches["A"],
                              "scale": scale_launches["A"],
                              "trainers": trainer_launches["A"],
-                             "scale_out": scale_out_launches["A"]},
+                             "scale_out": scale_out_launches["A"],
+                             "demo": demo_launches["A"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         **timing(serve_row, *bf16(kernel_rows)),
         "at": "B=64 H=12 L=32 D=64 bf16"}, {
@@ -2730,11 +3200,13 @@ def main():
         "source": "densephrases_tpu_torch/csrc/ivf_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:94",
         "launches": (ivf_launches["C"] + offline_launches["C"]
-                     + scale_launches["C"] + scale_out_launches["C"]),
+                     + scale_launches["C"] + scale_out_launches["C"]
+                     + demo_launches["C"]),
         "launches_by_path": {"ivf": ivf_launches["C"],
                              "offline": offline_launches["C"],
                              "scale": scale_launches["C"],
-                             "scale_out": scale_out_launches["C"]},
+                             "scale_out": scale_out_launches["C"],
+                             "demo": demo_launches["C"]},
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["C"]),
         **timing(ivf_rows["C"][0], *ivf_rows["C"]),
         "product_only_ms": [r["product_only_ms"] for r in ivf_rows["C"]],
@@ -2744,11 +3216,13 @@ def main():
         "source": "densephrases_tpu_torch/csrc/pq_pack_score.cu",
         "replaces": "densephrases_tpu/ops/ivf_pack.py:343",
         "launches": (ivf_launches["D"] + offline_launches["D"]
-                     + trainer_launches["D"] + scale_out_launches["D"]),
+                     + trainer_launches["D"] + scale_out_launches["D"]
+                     + demo_launches["D"]),
         "launches_by_path": {"ivf": ivf_launches["D"],
                              "offline": offline_launches["D"],
                              "trainers": trainer_launches["D"],
-                             "scale_out": scale_out_launches["D"]},
+                             "scale_out": scale_out_launches["D"],
+                             "demo": demo_launches["D"]},
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["D"]),
         **timing(ivf_rows["D"][0], *ivf_rows["D"]),
         "edge_rel_err": ivf_edge_err["D"],

@@ -5,8 +5,9 @@ device. A save directory holds ``config.json``, ``vocab.txt`` and
 ``params/step_0`` in the port's checkpoint format (``utils/checkpoint.py``);
 ``load_encoder`` also reads a directory that holds a torch
 ``pytorch_model.bin`` (HF / the reference's released DensePhrases keys,
-``models/hf_import.py``) instead of ``params/``. Not ported: reading the
-reference's orbax saves.
+``models/hf_import.py``) instead of ``params/``. A JAX package save (orbax)
+is refused with an error that names ``convert_jax_checkpoint.py``, which
+writes this format from it where jax is installed.
 """
 
 from __future__ import annotations

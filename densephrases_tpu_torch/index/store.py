@@ -3,8 +3,7 @@
 Host copy of ``densephrases_tpu/index/store.py``: the port never imports the JAX
 package, whose ``__init__`` imports jax. Keep the two in step. The on-disk
 format is the same byte for byte, so either package opens the other's
-stores; the only change is plain ``zlib`` in place of the reference's
-native parallel decompressor.
+stores.
 
 The reference stores phrase vectors as per-doc ragged HDF5 groups with
 datasets {start, start2end, word2char_start, word2char_end, f2o_start} and
@@ -53,6 +52,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from densephrases_tpu_torch import native
 from densephrases_tpu_torch.ops.quant import DEFAULT_OFFSET, DEFAULT_SCALE
 
 
@@ -322,8 +322,8 @@ class PhraseStore:
         return self._meta_cache[doc_pos]
 
     def preload_metas(self, background: bool = False):
-        """Decompress ALL doc metadata into the cache with zlib — the
-        serve-time 'metadata on RAM' mode
+        """Decompress ALL doc metadata into the cache using the native
+        parallel zlib codec — the serve-time 'metadata on RAM' mode
         (ref: index.py:69-76 meta_compressed.pkl preloading).
 
         background=True returns immediately and fills the cache from a
@@ -341,7 +341,17 @@ class PhraseStore:
         if not todo:
             return self
         keys = ("context", "word2char_start", "word2char_end", "f2o_start")
-        outs = [zlib.decompress(self.metas[i][k]) for i in todo for k in keys]
+        bufs, sizes = [], []
+        for i in todo:
+            m = self.metas[i]
+            known = m.get("sizes")
+            for k in keys:
+                bufs.append(m[k])
+                sizes.append(known[k] if known else -1)
+        if all(s >= 0 for s in sizes):
+            outs = native.decompress_batch(bufs, sizes)
+        else:  # legacy store without size metadata
+            outs = [zlib.decompress(b) for b in bufs]
         for j, i in enumerate(todo):
             c, ws, we, fo = outs[4 * j: 4 * j + 4]
             self._meta_cache[i] = DocMeta(
@@ -395,7 +405,13 @@ class PhraseStore:
                 [np.asarray(self._meta_cache[i].f2o_start, np.int32)
                  for i in range(self.num_docs)])
         else:
-            outs = [zlib.decompress(m["f2o_start"]) for m in self.metas]
+            bufs = [m["f2o_start"] for m in self.metas]
+            sizes = [m.get("sizes", {}).get("f2o_start", -1)
+                     for m in self.metas]
+            if bufs and all(s >= 0 for s in sizes):
+                outs = native.decompress_batch(bufs, sizes)
+            else:
+                outs = [zlib.decompress(b) for b in bufs]
             arr = (np.frombuffer(b"".join(outs), np.int32) if outs
                    else np.zeros(0, np.int32))
         assert arr.shape[0] == self.n_vecs, (

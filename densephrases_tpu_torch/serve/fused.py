@@ -29,7 +29,8 @@ class FusedServer:
 
     def __init__(self, model):
         index = model.mips.index
-        if not (isinstance(index, FlatIndex) and index.quant == "int8"):
+        if not (isinstance(index, FlatIndex) and index.mesh is None
+                and index.quant == "int8"):
             raise AssertionError(
                 "fused serving needs a single-device int8 FlatIndex")
         self.model = model
@@ -37,10 +38,18 @@ class FusedServer:
 
     def submit(self, queries, top_k: int = 10, max_answer_length: int = 10,
                aggregate: bool = True, agg_strat: str = "opt1",
-               return_sent: bool = False):
+               return_sent: bool = False, truecase: bool = True):
         """Tokenize + enqueue the device path without blocking; pass the
         returned handle to ``collect``."""
-        query = self.model.query2vec(queries)
+        model = self.model
+        # the truecasing of DensePhrases.search: the fused and modular paths
+        # see the same query text (ref: serve/fused.py:87-93)
+        if truecase and model.truecase is not None:
+            queries = [
+                q if q != q.lower() else model.truecase.get_true_case(q)
+                for q in queries
+            ]
+        query = model.query2vec(queries)
         hits = self.mips.search_dense(query, top_k=top_k)
         buf, layout = self.mips.rescore(query, *hits,
                                         max_answer_length=max_answer_length)
@@ -74,11 +83,11 @@ class FusedServer:
 
     def search(self, queries, top_k: int = 10, max_answer_length: int = 10,
                aggregate: bool = True, agg_strat: str = "opt1",
-               return_sent: bool = False):
+               return_sent: bool = False, truecase: bool = True):
         return self.collect(self.submit(
             queries, top_k=top_k, max_answer_length=max_answer_length,
             aggregate=aggregate, agg_strat=agg_strat,
-            return_sent=return_sent))
+            return_sent=return_sent, truecase=truecase))
 
     def search_pipelined(self, query_batches, depth: int = 2, **kwargs):
         """Serve a stream of query batches with ``depth`` batches in flight

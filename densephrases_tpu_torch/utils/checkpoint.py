@@ -5,7 +5,10 @@ The counterpart of ``densephrases_tpu/utils/checkpoint.py``, with its
 whole ``TrainState`` (params, optimizer moments and count, step, pre-batch
 ring) or bare params, so resume is exact, the pre-batch ring included.
 Tensors are saved from the host and restored onto the template's device.
-The reference's orbax saves are not read (queued in ROADMAP).
+The reference's orbax saves are not read here: this package never imports
+jax or orbax. ``restore_checkpoint`` recognises one and raises an error that
+names ``convert_jax_checkpoint.py`` (at the repository root), which turns a
+JAX ``save_encoder`` directory into this format where jax is installed.
 
 Under data-parallel training (a process group of several ranks) rank 0
 alone writes, with its own pre-batch ring, and every rank waits at a
@@ -23,6 +26,9 @@ import torch.distributed as dist
 from densephrases_tpu_torch.parallel import rank_and_size
 
 STATE_FILE = "state.pt"
+# files an orbax save leaves in its step directory (OCDBT or not)
+ORBAX_MARKERS = ("manifest.ocdbt", "_CHECKPOINT_METADATA")
+CONVERTER = "convert_jax_checkpoint.py"
 
 
 def _host(tree):
@@ -95,6 +101,13 @@ def restore_checkpoint(path: str, template: Any) -> Any:
         else latest_checkpoint(path)
     if target is None:
         raise FileNotFoundError(f"no checkpoint under {path}")
+    if not os.path.exists(os.path.join(target, STATE_FILE)) and any(
+            os.path.exists(os.path.join(target, m)) for m in ORBAX_MARKERS):
+        raise ValueError(
+            f"{target} is an orbax checkpoint written by the JAX package, "
+            f"which this package cannot read; convert its save directory "
+            f"where jax is installed: python {CONVERTER} --kind "
+            f"encoder|cross <jax_save_dir> <out_dir>")
     blob = torch.load(os.path.join(target, STATE_FILE), map_location="cpu",
                       weights_only=True)
     module = template if isinstance(template, torch.nn.Module) \

@@ -17,6 +17,7 @@ from densephrases_tpu_torch.cli import (
     common,
     eval_phrase_retrieval,
     generate_phrase_vecs,
+    run_demo,
     train_cross_encoder,
     train_mlm,
     train_query,
@@ -32,6 +33,7 @@ from densephrases_tpu_torch.index.tiered import TieredFlatIndex, TieredIVF
 from densephrases_tpu_torch.models import encoder, from_jax
 from densephrases_tpu_torch.models.bert import BertConfig
 from densephrases_tpu_torch.ops import kmeans, opq, pq
+from densephrases_tpu_torch.serve import server
 from densephrases_tpu_torch.train import cross_encoder, mlm
 
 ENTRY_POINTS = {
@@ -58,6 +60,7 @@ ENTRY_POINTS = {
     "train_query.main": train_query.main,
     "train_cross_encoder.main": train_cross_encoder.main,
     "train_mlm.main": train_mlm.main,
+    "run_demo.main": run_demo.main,
 }
 
 HELPERS = {
@@ -167,10 +170,31 @@ def test_mips_without_index_or_gpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("driver", [generate_phrase_vecs, build_phrase_index,
                                     eval_phrase_retrieval, train_query,
-                                    train_cross_encoder, train_mlm],
+                                    train_cross_encoder, train_mlm, run_demo],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_driver_without_a_gpu_raises(monkeypatch, driver):
     # the device is resolved before any flag or file is read
     _no_gpu(monkeypatch)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         driver.main(["--dump_dir", "no_such_dump"])
+
+
+@pytest.mark.parametrize("mode", ["q_serve", "serve_query", "p_serve",
+                                  "single_serve", "serve", "serve_bert",
+                                  "eval_request"])
+def test_every_demo_mode_without_a_gpu_raises(monkeypatch, mode):
+    # run_demo resolves the card before it loads or serves anything
+    _no_gpu(monkeypatch)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        run_demo.main(["--demo_mode", mode, "--load_dir", "no_such_dir",
+                       "--test_path", "no_such_file"])
+
+
+@pytest.mark.parametrize("make_app", [server.make_index_app,
+                                     server.make_query_encoder_app,
+                                     server.make_reader_app],
+                         ids=lambda f: f.__name__)
+def test_apps_serve_on_their_model_device(make_app):
+    # an app places nothing: it serves on the device its model was loaded
+    # onto, which run_demo.main resolves (default: the card)
+    assert "device" not in inspect.signature(make_app).parameters

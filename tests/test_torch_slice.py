@@ -7,6 +7,7 @@ contracts."""
 
 import inspect
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -26,6 +27,7 @@ from densephrases_tpu.index.search import MIPS as JaxMIPS
 from densephrases_tpu.index.store import PhraseStore as JaxPhraseStore
 from densephrases_tpu.models.bert import BertConfig as JaxBertConfig
 from densephrases_tpu.model import DensePhrases as JaxDensePhrases
+from densephrases_tpu.serve.fused import FusedServer as JaxFusedServer
 from densephrases_tpu.models import encoder as jax_encoder
 from densephrases_tpu.models.encoder import init_encoder_params as jax_init
 from densephrases_tpu.ops import kmeans as jax_kmeans
@@ -44,6 +46,11 @@ from densephrases_tpu.index import sharded as jax_sharded
 from densephrases_tpu.parallel import multihost as jax_multihost
 from densephrases_tpu.tools import parallel_dump as jax_pdump
 from densephrases_tpu.train import rc as jax_rc
+from densephrases_tpu.serve import server as jax_server
+from densephrases_tpu.tools import analysis as jax_analysis
+from densephrases_tpu.tools import benchmark as jax_benchmark
+from densephrases_tpu.tools import kilt_tools as jax_kilt_tools
+from densephrases_tpu.tools import question_generation as jax_qg
 from densephrases_tpu_torch.data import features as tfeat
 from densephrases_tpu_torch.data.tokenization import SPECIAL_TOKENS, WordPieceTokenizer
 from densephrases_tpu_torch.data.truecase import TrueCaser
@@ -74,6 +81,11 @@ from densephrases_tpu_torch.index import sharded as port_sharded
 from densephrases_tpu_torch.parallel import multihost as port_multihost
 from densephrases_tpu_torch.tools import parallel_dump as port_pdump
 from densephrases_tpu_torch.train import rc as port_rc
+from densephrases_tpu_torch.serve import server as port_server
+from densephrases_tpu_torch.tools import analysis as port_analysis
+from densephrases_tpu_torch.tools import benchmark as port_benchmark
+from densephrases_tpu_torch.tools import kilt_tools as port_kilt_tools
+from densephrases_tpu_torch.tools import question_generation as port_qg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = [f"w{i}" for i in range(200)] + ["paris", "river", "école"]
@@ -277,7 +289,14 @@ def test_import_leaves_jax_out():
             "densephrases_tpu_torch.parallel, "
             "densephrases_tpu_torch.parallel.multihost, "
             "densephrases_tpu_torch.index.sharded, "
-            "densephrases_tpu_torch.tools.parallel_dump\n"
+            "densephrases_tpu_torch.tools.parallel_dump, "
+            "densephrases_tpu_torch.serve.server, "
+            "densephrases_tpu_torch.cli.run_demo, "
+            "densephrases_tpu_torch.native, "
+            "densephrases_tpu_torch.tools.benchmark, "
+            "densephrases_tpu_torch.tools.analysis, "
+            "densephrases_tpu_torch.tools.kilt_tools, "
+            "densephrases_tpu_torch.tools.question_generation\n"
             "from densephrases_tpu_torch.preprocess.offline_corpus import "
             "package_roots\n"
             "package_roots()\n"
@@ -287,6 +306,20 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_no_module_of_the_port_imports_jax():
+    # not even inside a function: the card's machine has no jax
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|orbax|densephrases_tpu)"
+                         r"(\.|\s|$)", re.M)
+    root = os.path.join(REPO, "densephrases_tpu_torch")
+    sources = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+               if f.endswith(".py")]
+    assert len(sources) > 60
+    for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
+        with open(path) as f:
+            hit = pattern.search(f.read())
+        assert hit is None, (path, hit and hit.group(0))
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
@@ -449,6 +482,23 @@ SLICE_9 = [
                              "run_parallel_dump", "merge_shards"]),
 ]
 
+# the demo servers, the serve driver's client and the remaining host tools
+SLICE_10 = [
+    (port_server, jax_server, ["make_query_encoder_app", "make_index_app",
+                               "make_reader_app", "serve", "eval_request"]),
+    (port_server.RemoteQueryEncoder, jax_server.RemoteQueryEncoder,
+     ["__init__", "query2vec"]),
+    (port_analysis, jax_analysis, ["analyze_predictions",
+                                   "compare_predictions"]),
+    (port_benchmark, jax_benchmark, ["benchmark_store_read",
+                                     "create_benchmark_data"]),
+    (port_kilt_tools, jax_kilt_tools, ["build_title2wikiid",
+                                       "strip_predictions", "sample_jsonl"]),
+    (port_qg, jax_qg, ["cloze_qg", "cloze_qg_extended", "hf_seq2seq_qg",
+                       "generate_squad", "filter_qg"]),
+    (FusedServer, JaxFusedServer, ["submit", "search"]),
+]
+
 
 @pytest.mark.parametrize("port_fn,ref_fn", [
     (MIPS.search, JaxMIPS.search),
@@ -467,14 +517,16 @@ SLICE_9 = [
     (IVFIndex.load, JaxIVFIndex.load),
     (port_kmeans.kmeans, jax_kmeans.kmeans),
     *[(getattr(port, name), getattr(ref, name))
-      for port, ref, names in SLICE_8 + SLICE_9 for name in names],
+      for port, ref, names in SLICE_8 + SLICE_9 + SLICE_10
+      for name in names],
 ], ids=["MIPS.search", "MIPS.search_dense", "FlatIndex.search",
         "IVFIndex.search", "IVFIndex.search_union", "DensePhrases.search",
         "DensePhrases.__init__", "MIPS.__init__", "MIPS.search_phrase",
         "FlatIndex.__init__", "IVFIndex.__init__", "IVFIndex.build",
         "IVFIndex.build_coarse", "IVFIndex.load", "kmeans",
         *[f"{port.__name__.rsplit('.', 1)[-1]}.{name}"
-          for port, ref, names in SLICE_8 + SLICE_9 for name in names]])
+          for port, ref, names in SLICE_8 + SLICE_9 + SLICE_10
+          for name in names]])
 def test_signatures_follow_reference(port_fn, ref_fn):
     # positional arguments mean the same in both packages: the port's
     # positional parameters are the reference's, in order (the port may
