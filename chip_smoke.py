@@ -90,6 +90,17 @@ written kernel on that path against its plain PyTorch version:
                  (the same EM as a's); e. the native store runtime (built by
                  g++): ``preload_metas`` against per-doc ``meta()`` and
                  plain zlib, ``benchmark_store_read``
+  12. tools      the measurement tools and the examples through their
+                 ``main``: a. ``bench_ivf_scale`` at 2^21 x 768 in 13,107
+                 lists (SQ8 / SQ4 / OPQ96, probes 16 / 64 / 256, C and D
+                 alone on their inputs), full-probe SQ8 top-1 vs flat; b.
+                 ``bench_cpu_ivf`` on a's OPQ96 save against a numpy
+                 recomputation; c. ``bench_ivf_e2e`` (BERT-base towers,
+                 OPQ96 in three serve modes, nprobe 16 / 256); d.
+                 ``bench_tiered30m`` with its disk check; e. the five
+                 examples; f. a corpus of the checkout's own prose,
+                 ``cli.train_mlm`` at BERT-base width, ``dsmall``,
+                 ``bench_ivf_real`` and ``bench_serve_real``
 
 Kernel A's launch counter is zeroed right before phase 3 and read after
 phase 4's main-path work; kernels C and D's are zeroed right before phase 5
@@ -101,8 +112,9 @@ phase 7 and read at its end; A and C's right before phase 8's drivers
 phase 10 from its start to its end (the dump workers, separate driver
 processes, are not counted); A, C and D's from the start of phase 11 to
 its end, leaving out the in-process runs its served answers are compared
-with (the ``run_demo`` subprocesses are not counted); phases 6-11 must
-equal the counts their paths imply. A kernel of a path that never
+with (the ``run_demo`` subprocesses are not counted); A-D's from the start
+of phase 12 to the end of 12d, and again from 12e to its end, each tool's
+own part checked; phases 6-12 must equal the counts their paths imply. A kernel of a path that never
 launched fails the run.
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when there is no CUDA device. The second-last
@@ -312,7 +324,7 @@ DEMO_BATCH, DEMO_TOP_K, DEMO_TIMED_BATCHES = 64, 10, 64
 DEMO_QUESTIONS = DEMO_BATCH * (5 + DEMO_TIMED_BATCHES)
 DEMO_IVF_BATCHES = 8
 DEMO_CLI_TIMEOUT = 300
-DEMO_META_DOCS = 65536
+DEMO_META_DOCS = 16384
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -2973,6 +2985,457 @@ def phase_demo(tmp, config, docs, rng, smi):
     return counts
 
 
+# phase 12: the measurement tools and the examples. a-d at the reference's
+# width (768) and list shape (~160 rows a list) on a cut corpus of
+# AT_N rows; e the five examples; f the trained-vector study on a corpus
+# built from the checkout's own prose (BERT-base towers, REAL_* steps)
+AT_N, AT_D = 1 << 21, 768
+AT_NLIST = AT_N // 160  # 13,107 lists
+AT_QUANTS, AT_PROBES, AT_N_REP = ("SQ8", "SQ4", "OPQ96"), (16, 64, 256), 5
+AT_CPU_NPROBE, AT_CPU_RF = 16, 16
+AT_E2E_PROBES = (16, 256)
+AT_TIER_NLIST, AT_TIER_PROBES, AT_TIER_CHUNK = 8192, (16, 64), 1 << 20
+AT_ID_AGREEMENT = 0.99  # numpy recomputation vs the CPU baseline (fp32 sums)
+REAL_MLM_STEPS, REAL_MLM_BATCH = 4, 16
+REAL_STEPS, REAL_BATCH, REAL_SEQ, REAL_EVAL_EVERY = 20, 12, 192, 10
+REAL_QFT_PAIRS, REAL_QFT_TOPK = 96, 20
+REAL_NQ, REAL_PROBES = 64, (16, 64)
+# bench_ivf_e2e's work per run: the ground truth's encode, the served
+# batches (first, 4 warmup, 5 windows of 8), the stage split's encodes (1
+# warmup + 4, then one) and searches (1 + 4, then one), the served-vs-
+# MIPS.search check and the recall probe's search
+E2E_SERVED = 1 + 4 + 5 * 8
+E2E_ENCODES = 1 + E2E_SERVED + 5 + 1
+E2E_SEARCHES = E2E_SERVED + 5 + 1 + 1 + 1
+# bench_serve_real's, beyond its EM batches: the first batch, 4 warmup, 5
+# windows of 8, the stage split (5 + 1)
+SERVE_REAL_EXTRA = 1 + 4 + 5 * 8 + 5 + 1
+
+
+def numpy_ivfpq(idx, queries, nprobe, refine_factor, top_k=20):
+    """The IVF-PQ search over a saved index written another way than
+    ``bench_cpu_ivf.cpu_ivfpq_search``: each probed row decoded to its
+    vector (books gathered, not a LUT sum), full sorts; ids [B, top_k]."""
+    from densephrases_tpu_torch.ops.pq import unpack_nibbles
+
+    cents, offs = idx["centroids"], idx["list_offsets"]
+    books = idx["pq"].codebooks
+    m, ksub, dsub = books.shape
+    out = []
+    for q in queries:
+        probe = np.argsort(-(cents @ q), kind="stable")[:nprobe]
+        rows = np.concatenate([np.arange(offs[li], offs[li + 1])
+                               for li in probe])
+        lists = np.concatenate([np.full(offs[li + 1] - offs[li], li)
+                                for li in probe])
+        codes = np.asarray(idx["codes"][rows])
+        if ksub == 16:
+            codes = unpack_nibbles(codes)
+        recon = books[np.arange(m)[None, :], codes].reshape(len(rows), -1)
+        qr = q if idx["rotation"] is None else q @ idx["rotation"]
+        s = recon @ qr
+        if idx["pq_residual"]:
+            s = s + cents[lists] @ q
+        sel = np.argsort(-s, kind="stable")[:min(top_k * refine_factor,
+                                                 len(s))]
+        gids = idx["row_perm"][rows[sel]]
+        rs = (np.asarray(idx["refine"][gids], np.float32) @ q / idx["scale"]
+              + q.sum() * idx["offset"])
+        out.append(gids[np.argsort(-rs, kind="stable")[:top_k]])
+    return np.stack(out)
+
+
+def example_launches(docs, tok, layers, dump_batch, query_batches):
+    """Kernel A in one example: its dump (one launch a layer a batch of
+    windows) and its query encodes (two towers a batch)."""
+    from densephrases_tpu_torch.data.features import convert_context_to_features
+
+    windows = sum(len(convert_context_to_features(
+        i, d["title"], d["paragraphs"], tok, max_seq_length=128)[0])
+        for i, d in enumerate(docs))
+    return layers * (-(-windows // dump_batch) + 2 * query_batches)
+
+
+def phase_tools(tmp, smi):
+    """Phase 12: the measurement tools and the examples through their
+    entry points (``main(argv, device="cuda")``).
+
+    a. ``bench_ivf_scale`` at AT_N x 768 in AT_NLIST lists (the reference's
+       ~160 rows a list), SQ8 / SQ4 / OPQ96 at probes 16 / 64 / 256, with
+       its kernel rows (C, D alone on the batch of 64's own inputs); then,
+       outside the count, full-probe SQ8's top-1 against the flat top-1;
+    b. ``bench_cpu_ivf`` (host numpy) on a's OPQ96 save at nprobe 16 and
+       refine 16, its ids against ``numpy_ivfpq`` on the same save, its q/s
+       beside a's device q/s;
+    c. ``bench_ivf_e2e`` on a's caches: OPQ96 served in refine, decode and
+       host_refine mode at nprobe 16 and 256 (BERT-base towers), each
+       served batch equal to ``MIPS.search`` on the same vectors, device
+       bytes each;
+    d. ``bench_tiered30m --n auto --n_cap AT_N`` (the disk check, then
+       capped: the corpus sits within the card), ``TieredIVF`` at p16 /
+       p64 beside the same save in memory (kernel C);
+    e. the five examples (tiny encoders from scratch, ``--vocab_kind
+       whole_word``: the card's machine has no ``tokenizers``);
+    f. the corpus from the checkout's own docstrings and ``.md`` files,
+       ``cli.train_mlm`` (whole-word vocab) at BERT-base width for
+       REAL_MLM_STEPS steps, ``dsmall`` on it (RC training with
+       selection, two scales, one query-FT epoch), ``bench_ivf_real``
+       (SQ8, SQ4, OPQ96) and ``bench_serve_real`` (flat, OPQ96 decode)
+       on its largest store. At these step counts EM only shows that the
+       path runs.
+
+    A-D count from zero before a and are read after d ("at_scale"), and
+    again from zero before e to after f ("real"); each part's counts must
+    meet its formula: a's from the searches it makes, c's from E2E_*, d's
+    in-memory searches, e's dumps and encodes, f's MLM (2L A, L B a step),
+    RC (6L A with the recompute, 3L B a step) and query-FT (2L B a stepped
+    batch), and the grid's and serve's searches. Kernel A's count in f's
+    dsmall and examples is also held against the layer forwards run (every
+    attention on the path through kernel A)."""
+    from densephrases_tpu_torch.cli import train_mlm
+    from densephrases_tpu_torch.data.tokenization import build_vocab
+    from densephrases_tpu_torch.examples import (
+        _common, create_custom_index, entity_linking, fid_reader,
+        knowledge_dialogue, slot_filling)
+    from densephrases_tpu_torch.index.ivf import IVFIndex
+    from densephrases_tpu_torch.models import bert
+    from densephrases_tpu_torch.models.attention import (
+        ATTENTION_BWD, ATTENTION_FWD)
+    from densephrases_tpu_torch.ops.ivf_pack import (
+        IVF_PACK_SCORE, PQ_PACK_SCORE)
+    from densephrases_tpu_torch.tools import (
+        bench_cpu_ivf, bench_ivf_e2e, bench_ivf_real, bench_ivf_scale,
+        bench_serve_real, bench_tiered30m, dsmall)
+
+    kernels = {"A": ATTENTION_FWD, "B": ATTENTION_BWD, "C": IVF_PACK_SCORE,
+               "D": PQ_PACK_SCORE}
+    root = os.path.join(tmp, "tools")
+    work = os.path.join(root, "work")
+    os.makedirs(work)
+    out = lambda name: os.path.join(root, name)
+    counts = {}
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {n: k.launches for n, k in kernels.items()}
+
+    def part(name, before, want):
+        """Check one part's launches (the counters' growth since
+        ``before``) against its formula."""
+        now = read()
+        got = {n: now[n] - before[n] for n in now}
+        log("12 tools", part=name,
+            **{f"{n.lower()}_launches": v for n, v in got.items()},
+            **{f"{n.lower()}_expected": v for n, v in want.items()})
+        if got != {n: want.get(n, 0) for n in got}:
+            raise AssertionError(f"phase 12 {name}: launches {got} != {want}")
+        return now
+
+    layer_calls = [0]
+    real_layer_forward = bert.BertLayer.forward
+
+    def counted_layer(self, *a, **kw):
+        layer_calls[0] += 1
+        return real_layer_forward(self, *a, **kw)
+
+    # ---- a. the at-scale grid
+    zero()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    grid = bench_ivf_scale.main(
+        ["--n", str(AT_N), "--d", str(AT_D), "--nlist", str(AT_NLIST),
+         "--quants", ",".join(AT_QUANTS),
+         "--probes", ",".join(map(str, AT_PROBES)),
+         "--n_rep", str(AT_N_REP), "--kernel_rows", "--workdir", work,
+         "--out", out("IVF_SCALE.json")], device=DEVICE)
+    grid_s = time.perf_counter() - t0
+    # per probe: the b1 and b64 searches (one each, then 2 warmup + n_rep
+    # timed); SQ8's batch of 1 takes the probe-score path (no C); one
+    # counted search of the kernel row at b64
+    per = 1 + 2 + AT_N_REP
+    want_a = {"C": len(AT_PROBES) * ((per + 1) + (2 * per + 1)),
+              "D": len(AT_PROBES) * (2 * per + 1)}
+    now = part("a bench_ivf_scale", dict.fromkeys(kernels, 0), want_a)
+    for quant in AT_QUANTS:
+        row = grid[f"ivf_{quant}"]
+        for p in AT_PROBES:
+            ent = row[f"p{p}"]
+            for k in ("recall20_b1", "recall20_b64"):
+                if not 0.0 <= ent[k] <= 1.0:
+                    raise AssertionError(f"12a {quant} p{p}: {k} {ent[k]}")
+            kr = row["kernel"][f"p{p}"]
+            log("12 tools", part="a", quant=quant, nprobe=p,
+                b1_ms=ent["b1_ms"], b64_ms=ent["b64_ms"],
+                b64_qps=ent["b64_qps"], recall20_b1=ent["recall20_b1"],
+                recall20_b64=ent["recall20_b64"], kernel=kr["kernel"],
+                kernel_ms=kr["ms"], scan_ms=kr["scan_ms"],
+                share_of_scan=kr["share_of_scan"], bound_ms=kr["bound_ms"],
+                bound_by=kr["bound_by"], rows=kr["rows"],
+                kernel_launches=kr["launches"])
+            if kr["launches"] != 1:
+                raise AssertionError(f"12a {quant} p{p}: {kr}")
+        log("12 tools", part="a", quant=quant,
+            **{k: row[k] for k in ("build_s", "nlist_actual", "cap",
+                                   "list_mean", "list_max", "code_bytes",
+                                   "device_bytes") if k in row})
+    log("12 tools", part="a", n=AT_N, nlist=AT_NLIST, seconds=grid_s,
+        gen_s=grid.get("gen_s"), gt_s=grid["gt_s"],
+        flat_b64_ms=grid["flat_b64_ms"], flat_b1_ms=grid["flat_b1_ms"])
+    host = np.load(bench_ivf_scale.corpus_path(work, AT_N, AT_D),
+                   mmap_mode="r")
+    qrows = bench_ivf_scale.corpus_queries(host)
+    gt = np.load(bench_ivf_scale.corpus_path(work, AT_N, AT_D)
+                  + ".gt20.npz")
+    with uncounted(*kernels.values()):
+        sq8 = IVFIndex.load(bench_ivf_scale.index_dir(
+            work, "SQ8", AT_N, AT_D, AT_NLIST), device=DEVICE)
+        _, full = sq8.search(qrows[1:], top_k=1, nprobe=sq8.nlist)
+        del sq8
+        torch.cuda.empty_cache()
+    agree = float((full[:, 0] == gt["ei64"][:, 0]).mean())
+    log("12 tools", part="a", full_probe_sq8_top1_agreement=agree)
+    if agree != 1.0:
+        raise AssertionError(f"12a: full-probe SQ8 top-1 {agree} of flat")
+
+    # ---- b. the CPU baseline on a's OPQ96 save (host only)
+    cpu = bench_cpu_ivf.main(
+        ["--n", str(AT_N), "--d", str(AT_D), "--nlist", str(AT_NLIST),
+         "--quant", "OPQ96", "--nprobe", str(AT_CPU_NPROBE),
+         "--refine_factor", str(AT_CPU_RF), "--windows", "3", "--workdir",
+         work, "--out", out("BENCH_IVF.json")])
+    now = part("b bench_cpu_ivf", now, {})
+    idx = bench_cpu_ivf.load_index_host(bench_ivf_scale.index_dir(
+        work, "OPQ96", AT_N, AT_D, AT_NLIST))
+    got = bench_cpu_ivf.cpu_ivfpq_search(idx, qrows[1:], nprobe=AT_CPU_NPROBE,
+                                         refine_factor=AT_CPU_RF)
+    want = numpy_ivfpq(idx, qrows[1:], AT_CPU_NPROBE, AT_CPU_RF)
+    ids_agree = float(np.mean([len(set(a) & set(b)) / len(b) for a, b in
+                               zip(got.tolist(), want.tolist())]))
+    exact = float(np.mean([a == b for a, b in zip(got.tolist(),
+                                                  want.tolist())]))
+    dev_qps = grid["ivf_OPQ96"][f"p{AT_CPU_NPROBE}"]["b64_qps"]
+    log("12 tools", part="b", cpu_qps=cpu["qps"],
+        cpu_recall20=cpu["recall20_b64"], device_qps_p16=dev_qps,
+        device_over_cpu=dev_qps / cpu["qps"], host_threads=cpu["host_threads"],
+        ids_agree_with_numpy=ids_agree, queries_exactly_equal=exact,
+        tol=AT_ID_AGREEMENT)
+    if ids_agree < AT_ID_AGREEMENT:
+        raise AssertionError(f"12b: CPU baseline ids {ids_agree} of numpy")
+
+    # ---- c. the whole serve over a's OPQ96 (BERT-base towers)
+    layers = bert.BertConfig().num_hidden_layers
+    for mode in ("refine", "decode", "host_refine"):
+        for p in AT_E2E_PROBES:
+            t0 = time.perf_counter()
+            e2e = bench_ivf_e2e.main(
+                ["--n", str(AT_N), "--d", str(AT_D), "--nlist",
+                 str(AT_NLIST), "--quant", "OPQ96", "--serve_mode", mode,
+                 "--nprobe", str(p), "--workdir", work, "--out",
+                 out("BENCH_IVF.json")], device=DEVICE)
+            now = part(f"c bench_ivf_e2e {mode} p{p}", now,
+                       {"A": 2 * layers * E2E_ENCODES, "D": E2E_SEARCHES})
+            log("12 tools", part="c", mode=mode, nprobe=p,
+                seconds=time.perf_counter() - t0, qps=e2e["qps"],
+                stages_ms=json.dumps(e2e["stages_ms"]),
+                stage1_recall20=e2e["stage1_recall20_indist"],
+                device_resident_bytes=e2e["device_resident_bytes"],
+                allocated_delta_bytes=e2e["allocated_delta_bytes"],
+                mips_init_s=e2e["mips_init_s"],
+                served_equal=e2e["served_equals_mips_search"],
+                **{k: e2e[k] for k in ("gt_allocated_before",
+                                       "gt_allocated_with_flat",
+                                       "gt_allocated_after") if k in e2e})
+            if not e2e["served_equals_mips_search"]:
+                raise AssertionError(f"12c {mode} p{p}: served != MIPS")
+            if not 0.0 <= e2e["stage1_recall20_indist"] <= 1.0:
+                raise AssertionError(f"12c {mode} p{p}: recall {e2e}")
+            if e2e.get("gt_allocated_after", 0) > \
+                    e2e.get("gt_allocated_before", 0) + (64 << 20):
+                raise AssertionError(f"12c: the flat scan was not freed {e2e}")
+
+    # ---- d. the tiered serve, the disk check, beside the in-memory index
+    t0 = time.perf_counter()
+    tier = bench_tiered30m.main(
+        ["--n", "auto", "--n_cap", str(AT_N), "--d", str(AT_D), "--nlist",
+         str(AT_TIER_NLIST), "--probes", ",".join(map(str, AT_TIER_PROBES)),
+         "--batch", "64", "--chunk", str(AT_TIER_CHUNK), "--compare_hbm",
+         "--workdir", work, "--out", out("BENCH_IVF.json")], device=DEVICE)
+    now = part("d bench_tiered30m", now,
+               {"C": len(AT_TIER_PROBES) * (1 + 3)})
+    for p in AT_TIER_PROBES:
+        t, h = tier[f"p{p}"], tier["hbm"][f"p{p}"]
+        log("12 tools", part="d", nprobe=p, tiered_qps=t["qps"],
+            tiered_recall20=t["recall20_b64"], hbm_qps=h["qps"],
+            hbm_recall20=h["recall20_b64"])
+        if not (0.0 <= t["recall20_b64"] <= 1.0
+                and abs(t["recall20_b64"] - h["recall20_b64"]) <= 0.05):
+            raise AssertionError(f"12d p{p}: {t} vs {h}")
+    log("12 tools", part="d", seconds=time.perf_counter() - t0,
+        sizing=json.dumps(tier["sizing"]),
+        device_resident_bytes=tier["device_resident_bytes"],
+        build_s=tier["build_s"], gen_s=tier["gen_s"], gt_s=tier["gt_s"])
+    counts["at_scale"] = read()
+    shutil.rmtree(work)
+
+    # ---- e. the five examples (A only; counted from zero)
+    zero()
+    bert.BertLayer.forward = counted_layer
+    try:
+        texts = [d["text"] for d in _common.TINY_WIKI]
+        docs = [{"title": d["title"], "paragraphs": [d["text"]]}
+                for d in _common.TINY_WIKI]
+        ex_tok = build_vocab(texts, vocab_size=1200, kind="whole_word")
+        now = dict.fromkeys(kernels, 0)
+        for name, mod in (("entity_linking", entity_linking),
+                          ("fid_reader", fid_reader),
+                          ("knowledge_dialogue", knowledge_dialogue),
+                          ("slot_filling", slot_filling)):
+            metrics, rows = mod.main(["--workdir", out(name), "--vocab_kind",
+                                      "whole_word"], device=DEVICE)
+            now = part(f"e {name}", now, {"A": example_launches(
+                docs, ex_tok, 2, 4, 1)})
+            log("12 tools", part="e", example=name, rows=len(rows),
+                metrics=json.dumps(metrics))
+        arts = out("articles.json")
+        with open(arts, "w") as f:
+            json.dump({"data": [{"title": d["title"], "paragraphs": [
+                {"context": d["text"]}]} for d in _common.TINY_WIKI]}, f)
+        qs = out("questions.json")
+        with open(qs, "w") as f:
+            json.dump({"data": [{"question": q, "answers": a} for q, a in (
+                ("Who discovered radium?", ["Marie Curie"]),
+                ("Who wrote the first computer program?", ["Ada Lovelace"]),
+                ("Who broke the Enigma code?", ["Alan Turing"]))]}, f)
+        cci = create_custom_index.main(
+            ["--articles", arts, "--questions", qs, "--workdir",
+             out("custom_index"), "--vocab_kind", "whole_word"],
+            device=DEVICE)
+        cci_tok = build_vocab(texts, vocab_size=4000, kind="whole_word")
+        now = part("e create_custom_index", now, {"A": example_launches(
+            docs, cci_tok, 2, 16, len(cci))})
+        log("12 tools", part="e", example="create_custom_index",
+            answers=json.dumps([a for _, _, a in cci]))
+        if not all(len(a) for _, _, a in cci):
+            raise AssertionError("12e: custom index gave no answers")
+        if layer_calls[0] != now["A"]:
+            raise AssertionError(f"12e: A {now['A']} != layer forwards "
+                                 f"{layer_calls[0]}")
+
+        # ---- f. the trained-vector study
+        real = os.path.join(root, "real")
+        ds_dir = os.path.join(real, "dsmall")
+        md = os.path.join(real, "md")  # the checkout's top-level .md files
+        os.makedirs(md)
+        for fn in sorted(os.listdir(HERE)):
+            if fn.endswith(".md"):
+                shutil.copy(os.path.join(HERE, fn), md)
+        t0 = time.perf_counter()
+        corpus = dsmall.main(
+            ["--corpus_only", "--workdir", ds_dir, "--doc_roots",
+             os.path.join(HERE, "densephrases_tpu_torch"), "--md_roots", md,
+             "--out", out("CORPUS.json")], device=DEVICE)
+        corpus_json = os.path.join(ds_dir, "corpus_docs.json")
+        n_pars = corpus["n_paragraphs"]
+        log("12 tools", part="f", n_docs=corpus["n_docs"],
+            n_paragraphs=n_pars, corpus_s=time.perf_counter() - t0)
+        before_layers = layer_calls[0]
+        mlm_dir = os.path.join(real, "mlm")
+        t0 = time.perf_counter()
+        blob = train_mlm.main(
+            ["--out", mlm_dir, "--corpus", os.path.join(ds_dir, "corpus.txt"),
+             "--steps", str(REAL_MLM_STEPS), "--batch", str(REAL_MLM_BATCH),
+             "--seq", "128", "--hidden", "768",
+             "--layers", str(layers), "--heads", "12", "--vocab", "8000",
+             "--vocab_kind", "whole_word", "--max_pos", "512", "--holdout",
+             "0"], device=DEVICE)
+        now = part("f train_mlm", now, {"A": 2 * layers * REAL_MLM_STEPS,
+                                        "B": layers * REAL_MLM_STEPS})
+        log("12 tools", part="f", mlm_s=time.perf_counter() - t0,
+            mlm_loss_first=blob["loss_first"], mlm_loss_last=blob["loss_last"])
+        scales = f"{n_pars // 3},{n_pars}"
+        t0 = time.perf_counter()
+        ds = dsmall.main(
+            ["--workdir", ds_dir, "--corpus", corpus_json, "--pretrained",
+             mlm_dir, "--scales", scales, "--dev_pars", "20",
+             "--dev_per_par", "8", "--train_per_par",
+             "6", "--train_max_pars", "200", "--steps", str(REAL_STEPS),
+             "--batch", str(REAL_BATCH), "--seq", str(REAL_SEQ),
+             "--pre_batch", "2", "--eval_every", str(REAL_EVAL_EVERY),
+             "--patience", "3", "--qft_epochs", "1", "--qft_pairs",
+             str(REAL_QFT_PAIRS), "--qft_topk", str(REAL_QFT_TOPK),
+             "--qft_batch", str(REAL_BATCH), "--dump_batch", "32", "--out",
+             out("DSMALL.json")], device=DEVICE)
+        rc_steps = ds["rc_train"]["steps_run"]
+        qft_steps = sum(ds["qft"]["steps"])
+        fwd = layer_calls[0] - before_layers - 2 * layers * REAL_MLM_STEPS
+        now = part("f dsmall", now, {
+            "A": fwd, "B": 3 * layers * rc_steps + 2 * layers * qft_steps})
+        log("12 tools", part="f", dsmall_s=time.perf_counter() - t0,
+            rc_steps=rc_steps, best_step=ds["rc_train"]["best_step"],
+            best_dev_loss=ds["rc_train"]["best_dev_loss"],
+            qft_steps=qft_steps, n_train=ds["n_train"], n_dev=ds["n_dev"],
+            scales=json.dumps({k: {"n_vecs": v["n_vecs"],
+                                   "em_top1": v["dev"]["em_top1"],
+                                   "em_top10": v["dev"]["em_top10"]}
+                               for k, v in ds["scales"].items()}),
+            qft_em1_delta=ds["qft"]["em1_delta"],
+            note="EM at these step counts only shows that the path runs")
+        if rc_steps != REAL_STEPS or qft_steps <= 0:
+            raise AssertionError(f"12f dsmall: {ds['rc_train']} {ds['qft']}")
+        store = os.path.join(ds_dir, f"store_pars{n_pars}")
+        enc = os.path.join(ds_dir, "encoder_qft")
+        rv = bench_ivf_real.main(
+            ["--store", store, "--encoder", enc, "--nlist", "256", "--nq",
+             str(REAL_NQ), "--quants", "SQ8,SQ4,OPQ", "--probes",
+             ",".join(map(str, REAL_PROBES)), "--out",
+             out("IVF_REAL.json")], device=DEVICE)
+        np_ = len(REAL_PROBES)
+        now = part("f bench_ivf_real", now,
+                   {"A": 2 * layers, "C": 2 * np_, "D": 2 * np_})
+        for key in ("ivf_SQ8", "ivf_SQ4", "ivf_OPQ96"):
+            for p in REAL_PROBES:
+                r = rv[key][f"p{p}"]
+                log("12 tools", part="f", grid=key, nprobe=p,
+                    list_max=rv[key]["list_max"],
+                    list_mean=rv[key]["list_mean"], **{
+                        k: r[k] for k in ("recall20", "recall20_norefine")
+                        if k in r})
+                if not 0.0 <= r["recall20"] <= 1.0:
+                    raise AssertionError(f"12f {key} p{p}: {r}")
+        with open(os.path.join(ds_dir, "qa_doc_split.json")) as f:
+            n_dev = len(json.load(f)["dev"])
+        em_batches = min(12, n_dev // 64)
+        for index, k in (("flat", None), ("OPQ", "D")):
+            sr = bench_serve_real.main(
+                ["--store", store, "--encoder", enc, "--index", index,
+                 "--nprobe", "64", "--out", out("SERVE_REAL.json")],
+                device=DEVICE)
+            served = em_batches + SERVE_REAL_EXTRA
+            want = {"A": 2 * layers * served}
+            if k:
+                want[k] = served
+            now = part(f"f bench_serve_real {index}", now, want)
+            log("12 tools", part="f", serve_real=index, qps=sr["qps"],
+                dev_em1=sr["dev_em1"], dev_em1_n=sr["dev_em1_n"],
+                meta_preload_s=sr["meta_preload_s"],
+                stages_ms=json.dumps(sr["stages_ms"]),
+                mips_init_s=sr["mips_init_s"])
+        if layer_calls[0] != now["A"]:
+            raise AssertionError(f"12e-f: A {now['A']} != layer forwards "
+                                 f"{layer_calls[0]}")
+    finally:
+        bert.BertLayer.forward = real_layer_forward
+    counts["real"] = read()
+    log("12 tools", seconds=time.perf_counter() - t_phase,
+        at_scale=json.dumps(counts["at_scale"]),
+        real=json.dumps(counts["real"]), card=repr(smi))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
@@ -3152,6 +3615,9 @@ def main():
     # ---- 11. demo (A, C and D counters from zero; served requests only)
     demo_launches = phase_demo(tmp, config, docs, rng, smi)
 
+    # ---- 12. tools and examples (A-D from zero over a-d, then over e-f)
+    tool_launches = phase_tools(tmp, smi)
+
     def timing(row, *rows):
         """The line's numbers for one kernel from its headline row; every
         row's numbers beside them."""
@@ -3174,14 +3640,17 @@ def main():
         "launches": (main_path_launches + train_launches["A"]
                      + offline_launches["A"] + scale_launches["A"]
                      + trainer_launches["A"] + scale_out_launches["A"]
-                     + demo_launches["A"]),
+                     + demo_launches["A"] + tool_launches["at_scale"]["A"]
+                     + tool_launches["real"]["A"]),
         "launches_by_path": {"dump_serve": main_path_launches,
                              "train": train_launches["A"],
                              "offline": offline_launches["A"],
                              "scale": scale_launches["A"],
                              "trainers": trainer_launches["A"],
                              "scale_out": scale_out_launches["A"],
-                             "demo": demo_launches["A"]},
+                             "demo": demo_launches["A"],
+                             "at_scale": tool_launches["at_scale"]["A"],
+                             "real": tool_launches["real"]["A"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         **timing(serve_row, *bf16(kernel_rows)),
         "at": "B=64 H=12 L=32 D=64 bf16"}, {
@@ -3189,10 +3658,11 @@ def main():
         "source": "densephrases_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "densephrases_tpu/models/attention.py:94",
         "launches": (train_launches["B"] + trainer_launches["B"]
-                     + scale_out_launches["B"]),
+                     + scale_out_launches["B"] + tool_launches["real"]["B"]),
         "launches_by_path": {"train": train_launches["B"],
                              "trainers": trainer_launches["B"],
-                             "scale_out": scale_out_launches["B"]},
+                             "scale_out": scale_out_launches["B"],
+                             "real": tool_launches["real"]["B"]},
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         **timing(bwd_row, *bf16(bwd_rows)),
         "at": "B=12 H=12 L=384 D=64 bf16"}, {
@@ -3201,12 +3671,15 @@ def main():
         "replaces": "densephrases_tpu/ops/ivf_pack.py:94",
         "launches": (ivf_launches["C"] + offline_launches["C"]
                      + scale_launches["C"] + scale_out_launches["C"]
-                     + demo_launches["C"]),
+                     + demo_launches["C"] + tool_launches["at_scale"]["C"]
+                     + tool_launches["real"]["C"]),
         "launches_by_path": {"ivf": ivf_launches["C"],
                              "offline": offline_launches["C"],
                              "scale": scale_launches["C"],
                              "scale_out": scale_out_launches["C"],
-                             "demo": demo_launches["C"]},
+                             "demo": demo_launches["C"],
+                             "at_scale": tool_launches["at_scale"]["C"],
+                             "real": tool_launches["real"]["C"]},
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["C"]),
         **timing(ivf_rows["C"][0], *ivf_rows["C"]),
         "product_only_ms": [r["product_only_ms"] for r in ivf_rows["C"]],
@@ -3217,12 +3690,15 @@ def main():
         "replaces": "densephrases_tpu/ops/ivf_pack.py:343",
         "launches": (ivf_launches["D"] + offline_launches["D"]
                      + trainer_launches["D"] + scale_out_launches["D"]
-                     + demo_launches["D"]),
+                     + demo_launches["D"] + tool_launches["at_scale"]["D"]
+                     + tool_launches["real"]["D"]),
         "launches_by_path": {"ivf": ivf_launches["D"],
                              "offline": offline_launches["D"],
                              "trainers": trainer_launches["D"],
                              "scale_out": scale_out_launches["D"],
-                             "demo": demo_launches["D"]},
+                             "demo": demo_launches["D"],
+                             "at_scale": tool_launches["at_scale"]["D"],
+                             "real": tool_launches["real"]["D"]},
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["D"]),
         **timing(ivf_rows["D"][0], *ivf_rows["D"]),
         "edge_rel_err": ivf_edge_err["D"],

@@ -6,9 +6,10 @@ beside it as the reference the port is tested against. This package never
 imports jax or ``densephrases_tpu``; the framework-free host modules are
 copies (``data/``, ``eval/``, ``index/store.py``, ``options.py``).
 
-Ported so far, the flat-index, IVF and host-tiered serve paths, the
-offline drivers and RC training:
+The public surface is the reference's (``Options``, ``PhraseEncoder`` /
+``Encoder``, ``MIPS``, ``DensePhrases``) and the index classes:
 
+  - ``Options``        — the config registry (``options.py``, a host copy)
   - ``PhraseEncoder``  — BERT phrase/query towers (``models/``), with the
     attention forward and backward as hand-written CUDA kernels (``csrc/``)
   - ``IVFIndex``       — IVF-SQ8/SQ4/PQ/OPQ build (two-level k-means at
@@ -24,6 +25,7 @@ offline drivers and RC training:
     ``models/encoder.py:rc_loss``
 """
 
+from densephrases_tpu_torch.options import Options
 from densephrases_tpu_torch.models.encoder import PhraseEncoder
 from densephrases_tpu_torch.index.ivf import IVFConfig, IVFIndex
 from densephrases_tpu_torch.index.search import MIPS
@@ -32,5 +34,5 @@ from densephrases_tpu_torch.model import DensePhrases
 Encoder = PhraseEncoder  # reference-compatible alias
 
 __version__ = "0.1.0"
-__all__ = ["PhraseEncoder", "Encoder", "IVFConfig", "IVFIndex", "MIPS",
-           "DensePhrases"]
+__all__ = ["Options", "PhraseEncoder", "Encoder", "IVFConfig", "IVFIndex",
+           "MIPS", "DensePhrases"]

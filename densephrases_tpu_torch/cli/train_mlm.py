@@ -6,9 +6,9 @@ encoder save (``cli.common.save_encoder``: config.json / vocab.txt /
 params) whose three towers are the pretrained backbone, loadable by every
 downstream trainer through ``cli.common.load_encoder``.
 
-The vocab is trained with ``tokenizers`` (``train_wordpiece_vocab``); where
-that package is missing, call ``train.mlm.pretrain_mlm`` with a tokenizer
-built another way.
+The vocab is trained with ``tokenizers`` (``train_wordpiece_vocab``), as in
+the reference; ``--vocab_kind whole_word`` takes ``whole_word_vocab``'s
+instead, which needs no package.
 
 Run: python -m densephrases_tpu_torch.cli.train_mlm --out /path/enc \\
          [--corpus cache/mlm_corpus.txt] [--steps 20000]
@@ -20,6 +20,7 @@ import logging
 import os
 import time
 
+from densephrases_tpu_torch.data.tokenization import VOCAB_KINDS
 from densephrases_tpu_torch.utils.device import resolve_device
 
 
@@ -41,6 +42,7 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--heads", type=int, default=4)
     ap.add_argument("--vocab", type=int, default=8000)
+    ap.add_argument("--vocab_kind", choices=VOCAB_KINDS, default="wordpiece")
     ap.add_argument("--max_pos", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--holdout", type=float, default=0.02)
@@ -52,7 +54,7 @@ def main(argv=None, device="cuda"):
     import torch
 
     from densephrases_tpu_torch.cli.common import save_encoder
-    from densephrases_tpu_torch.data.tokenization import train_wordpiece_vocab
+    from densephrases_tpu_torch.data.tokenization import build_vocab
     from densephrases_tpu_torch.models.bert import BertConfig
     from densephrases_tpu_torch.preprocess.offline_corpus import (
         build_corpus,
@@ -69,7 +71,7 @@ def main(argv=None, device="cuda"):
         texts = build_corpus(out_path=args.corpus)
     print(f"corpus: {len(texts)} paragraphs", flush=True)
 
-    tok = train_wordpiece_vocab(texts, vocab_size=args.vocab)
+    tok = build_vocab(texts, vocab_size=args.vocab, kind=args.vocab_kind)
     config = BertConfig(
         vocab_size=tok.vocab_size, hidden_size=args.hidden,
         num_hidden_layers=args.layers, num_attention_heads=args.heads,

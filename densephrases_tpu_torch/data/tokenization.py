@@ -286,3 +286,48 @@ def train_wordpiece_vocab(texts, vocab_size: int = 8000, do_lower_case: bool = T
         os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
         wp.save_vocab(save_path)
     return wp
+
+
+def whole_word_vocab(texts, vocab_size: int = 8000,
+                     do_lower_case: bool = True) -> dict:
+    """A WordPiece vocab without training: the special tokens, every
+    character seen (alone and as a ``##`` continuation, so every word
+    tokenizes), then the most frequent basic-tokenized words (ties in
+    first-seen order) up to ``vocab_size``."""
+    basic = BasicTokenizer(do_lower_case)
+    counts: dict = {}
+    for text in texts:
+        for w in basic.tokenize(text):
+            counts[w] = counts.get(w, 0) + 1
+    chars = sorted({c for w in counts for c in w})
+    vocab = list(SPECIAL_TOKENS) + chars + ["##" + c for c in chars]
+    have = set(vocab)
+    for w, _ in sorted(counts.items(), key=lambda kv: -kv[1]):
+        if len(vocab) >= vocab_size:
+            break
+        if w not in have:
+            vocab.append(w)
+            have.add(w)
+    return {t: i for i, t in enumerate(vocab)}
+
+
+VOCAB_KINDS = ("wordpiece", "whole_word")
+
+
+def build_vocab(texts, vocab_size: int = 8000, do_lower_case: bool = True,
+                save_path: Optional[str] = None,
+                kind: str = "wordpiece") -> WordPieceTokenizer:
+    """A tokenizer over ``texts``: kind "wordpiece" trains one with
+    `tokenizers` (``train_wordpiece_vocab``), "whole_word" takes
+    ``whole_word_vocab``'s, which needs no package."""
+    if kind == "wordpiece":
+        return train_wordpiece_vocab(texts, vocab_size, do_lower_case,
+                                     save_path)
+    if kind != "whole_word":
+        raise ValueError(f"vocab kind {kind!r} is not one of {VOCAB_KINDS}")
+    wp = WordPieceTokenizer(whole_word_vocab(texts, vocab_size, do_lower_case),
+                            do_lower_case)
+    if save_path:
+        os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+        wp.save_vocab(save_path)
+    return wp

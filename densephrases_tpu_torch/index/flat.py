@@ -61,16 +61,18 @@ def _chunked_topk(queries, codes, n_valid: int, offset: float, scale: float,
                   unpack, *, top_k: int, chunk: int):
     """The scan both quantizations share: per chunk, ``unpack`` gives the
     fp32 codes [chunk, D] that the bf16-rounded queries multiply; exact
-    top-k per chunk, exact merge."""
+    top-k per chunk, exact merge. A chunk that does not divide the row
+    count leaves a short last chunk, so every row is scored once."""
     qsum = queries.sum(-1) * offset  # [B] rank-1 dequant correction
     qbf = queries.to(torch.bfloat16).to(torch.float32)
     col = torch.arange(chunk, device=codes.device, dtype=torch.int32)
-    k = min(top_k, chunk)
     vals, ids = [], []
     for i0 in range(0, codes.shape[0], chunk):
-        s = (qbf @ unpack(codes[i0:i0 + chunk]).T) / scale + qsum[:, None]
-        s = s.masked_fill(i0 + col >= n_valid, NEG_INF)
-        v, pos = torch.topk(s, k, dim=-1)
+        block = unpack(codes[i0:i0 + chunk])
+        rows = block.shape[0]
+        s = (qbf @ block.T) / scale + qsum[:, None]
+        s = s.masked_fill(i0 + col[:rows] >= n_valid, NEG_INF)
+        v, pos = torch.topk(s, min(top_k, rows), dim=-1)
         vals.append(v)
         ids.append(pos.to(torch.int32) + i0)
     all_vals, all_ids = torch.cat(vals, 1), torch.cat(ids, 1)
@@ -114,8 +116,8 @@ class FlatIndex:
                  quant: str = "int8", int4_offset: Optional[float] = None,
                  int4_scale: Optional[float] = None,
                  n_total: Optional[int] = None, *, device="cuda"):
-        """codes: [N, D] int8 numpy array (a memmap streams slice by slice,
-        never copied whole on the host). The parameters are the
+        """codes: [N, D] int8 numpy array or tensor (a memmap streams
+        slice by slice, never copied whole on the host). The parameters are the
         reference's, in its order. mesh: a ``parallel.Mesh``; each rank
         passes the same codes and keeps its own rows on ``mesh.device``
         (``device`` is then unused). With a mesh, codes may instead be this
@@ -162,11 +164,13 @@ class FlatIndex:
         self._upload(codes, 0, self.n_total)
 
     def _upload(self, codes, lo: int, hi: int):
-        """Copy rows [lo, hi) of host codes into ``self.codes[0:hi-lo]``."""
+        """Copy rows [lo, hi) of the codes (a host array, or a tensor on
+        any device) into ``self.codes[0:hi-lo]``."""
         for i0 in range(lo, hi, SLICE_ROWS):
-            # a writable copy of one slice: stores load read-only
-            rows = torch.from_numpy(np.array(codes[i0:min(i0 + SLICE_ROWS,
-                                                          hi)]))
+            rows = codes[i0:min(i0 + SLICE_ROWS, hi)]
+            if not isinstance(rows, torch.Tensor):
+                # a writable copy of one slice: stores load read-only
+                rows = torch.from_numpy(np.array(rows))
             if self.quant == "int4":  # re-quantized on the device
                 rows = float_to_int4(
                     int8_to_float(rows.to(self.device), self.offset,
@@ -203,12 +207,12 @@ class FlatIndex:
         lo = min(self.mesh.rank * self.shard_rows, self.n_total)
         self._upload(codes, lo, min(lo + self.shard_rows, self.n_total))
 
-    def _mesh_search(self, queries, k: int):
+    def _mesh_search(self, queries, k: int, chunk: int):
         """Per-rank scan, then the all-gather and merge of the candidates."""
         base = self.mesh.rank * self.shard_rows
         n_valid = min(max(self.n_total - base, 0), self.shard_rows)
         vals, ids = _scan_topk(queries, self.codes, n_valid, self.offset,
-                               self.scale, top_k=k, chunk=self.chunk)
+                               self.scale, top_k=k, chunk=chunk)
         # int32 global ids below 2^31 rows, as in the reference
         gids = ids.to(torch.int32 if self.n_total < 2**31 else torch.int64)
         gids = gids + base
@@ -217,25 +221,28 @@ class FlatIndex:
         return topk_merge(all_vals.transpose(0, 1), all_ids.transpose(0, 1), k)
 
     def search(self, queries, top_k: int = 10, nprobe: int = 0,
-               as_numpy: bool = True):
+               as_numpy: bool = True, *, chunk: Optional[int] = None):
         """queries: [B, D] → (scores [B, K] fp32, ids [B, K] int32).
         nprobe is accepted and ignored, as in the reference, so ``MIPS``
         passes it to either index type. as_numpy=False keeps the results
-        on the device. With a mesh every rank passes the same queries and
-        gets the same merged result."""
+        on the device. chunk: the rows of each scanned chunk (None: the
+        index's); each chunk's top-k is exact, so the ids do not depend on
+        it. With a mesh every rank passes the same queries and gets the
+        same merged result."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
         k = min(top_k, self.n_total)
+        chunk = chunk or self.chunk
         if self.mesh is not None:
-            vals, ids = self._mesh_search(queries, k)
+            vals, ids = self._mesh_search(queries, k, chunk)
         elif self.quant == "int4":
             vals, ids = _scan_topk_int4(
                 queries, self.codes, self.n_total, self.int4_offset,
-                self.int4_scale, top_k=k, chunk=self.chunk)
+                self.int4_scale, top_k=k, chunk=chunk)
         else:
             vals, ids = _scan_topk(queries, self.codes, self.n_total,
                                    self.offset, self.scale, top_k=k,
-                                   chunk=self.chunk)
+                                   chunk=chunk)
         if k < top_k:  # pad to the requested k for fixed downstream shapes
             pad = top_k - k
             vals = torch.cat([vals, vals.new_full((vals.shape[0], pad),

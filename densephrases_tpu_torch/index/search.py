@@ -383,10 +383,12 @@ class MIPS:
                 "c_rot": c_rot.to(torch.float32), "rot": rot}
 
     # ---------------- stage 1 ----------------
-    def search_dense(self, query, top_k: int = 10, nprobe: int = 256):
+    def search_dense(self, query, top_k: int = 10, nprobe: int = 256, *,
+                     chunk: Optional[int] = None):
         """query: [B, 2D] — returns start/end hit ids + scores as DEVICE
         tensors (ref: index.py:189-218). nprobe: IVF lists probed (capped
-        at nlist by the index; a flat index ignores it)."""
+        at nlist by the index; a flat index ignores it). chunk: a flat
+        index's scan chunk (None: the index's own)."""
         query = torch.as_tensor(query, dtype=torch.float32, device=self.device)
         b = query.shape[0]
         qs, qe = query.chunk(2, dim=1)
@@ -394,8 +396,9 @@ class MIPS:
         if self.R is not None:
             stacked = stacked @ self.R  # rotate queries into code space
         with self.timer.stage("mips_device"):
-            scores, gids = self.index.search(stacked, top_k, nprobe=nprobe,
-                                             as_numpy=False)
+            scores, gids = self.index.search(
+                stacked, top_k, nprobe=nprobe, as_numpy=False,
+                **({} if chunk is None else {"chunk": chunk}))
         s_scores, e_scores = scores[:b], scores[b:]
         s_gids, e_gids = gids[:b], gids[b:]
 

@@ -400,13 +400,17 @@ def query_loss(params: EncoderParams, config: BertConfig, query_input_ids,
 
 class PhraseEncoder:
     """Holds (config, params) and mirrors the reference ``Encoder`` surface
-    (ref: encoder.py:17-118)."""
+    (ref: encoder.py:17-118). Exported as ``Encoder``, it is an entry point:
+    fresh towers go to ``device``, the card unless the caller asks for the
+    CPU. Given ``params`` stay where they are."""
 
     def __init__(self, config: BertConfig, params: Optional[EncoderParams] = None,
-                 generator: Optional[torch.Generator] = None, *, device):
+                 generator: Optional[torch.Generator] = None,
+                 with_teacher: bool = False, *, device="cuda"):
         self.config = config
         if params is None:
-            params = init_encoder_params(config, generator, device=device)
+            params = init_encoder_params(config, generator, device=device,
+                                         with_teacher=with_teacher)
         self.params = params
 
     def embed_phrase(self, input_ids, attention_mask, token_type_ids=None, **kw):

@@ -28,6 +28,7 @@ import hashlib
 import logging
 import os
 import subprocess
+import threading
 import zlib
 from pathlib import Path
 from typing import List, Optional
@@ -42,6 +43,7 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 GXX_LIBS = ("-lz", "-pthread")
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
+_load_lock = threading.Lock()
 
 
 def library_path() -> Path:
@@ -67,6 +69,11 @@ def _build(out: Path) -> bool:
 
 
 def _load() -> Optional[ctypes.CDLL]:
+    with _load_lock:  # one build a process: threads share its temp name
+        return _load_locked()
+
+
+def _load_locked() -> Optional[ctypes.CDLL]:
     global _lib, _build_failed
     if _lib is not None:
         return _lib

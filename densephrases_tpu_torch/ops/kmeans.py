@@ -440,6 +440,10 @@ def _top1_parent(codes_dev, l1_eff, *, chunk: int = 8192):
         for i0 in range(0, codes_dev.shape[0], chunk)])
 
 
+# the largest [rows, candidates] distance matrix of one assignment step
+GROUP_ELEMS = 1 << 28
+
+
 def _group_assign(codes_dev, order, parent_sorted, start: int, p0: int, nbr,
                   cents_bf, csq_pad, offs, *, m_bucket: int, pg: int,
                   probe: int, cap: int):
@@ -502,19 +506,24 @@ def assign_corpus_hier(codes_dev, l1: np.ndarray, centroids: np.ndarray,
     ranges = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
 
     assign_sorted = torch.empty(n, dtype=torch.int64, device=dev)
+    # a skewed corpus can put most rows under a few parents: a group's rows
+    # go through in pieces of at most ``rows_max`` (each row's argmin is
+    # its own, so the pieces change nothing)
+    rows_max = 1 << max(9, int(np.log2(max(GROUP_ELEMS // (pg * probe * cap),
+                                           1))))
     for g0 in range(0, k1, pg):
-        start = int(ranges[g0])
-        m = int(ranges[min(g0 + pg, k1)] - start)
-        if m == 0:
-            continue
-        m_bucket = min(1 << int(np.ceil(np.log2(max(m, 512)))), n)
-        start_c = min(start, n - m_bucket)  # clamped: the tail is sliced off
-        gid = _group_assign(
-            codes_dev, order, parent_sorted, start_c, g0, nbr_dev, cents_bf,
-            csq_dev, offs_dev, m_bucket=m_bucket, pg=min(pg, k1 - g0),
-            probe=probe, cap=cap)
-        assign_sorted[start:start + m] = gid[start - start_c:
-                                             start - start_c + m]
+        g_start = int(ranges[g0])
+        g_end = int(ranges[min(g0 + pg, k1)])
+        for start in range(g_start, g_end, rows_max):
+            m = min(rows_max, g_end - start)
+            m_bucket = min(1 << int(np.ceil(np.log2(max(m, 512)))), n)
+            start_c = min(start, n - m_bucket)  # clamped: tail sliced off
+            gid = _group_assign(
+                codes_dev, order, parent_sorted, start_c, g0, nbr_dev,
+                cents_bf, csq_dev, offs_dev, m_bucket=m_bucket,
+                pg=min(pg, k1 - g0), probe=probe, cap=cap)
+            assign_sorted[start:start + m] = gid[start - start_c:
+                                                 start - start_c + m]
     out = torch.empty_like(assign_sorted)
     out[order] = assign_sorted
     return out.to(torch.int32).cpu().numpy()

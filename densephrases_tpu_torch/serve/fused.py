@@ -17,6 +17,8 @@ index, as the reference does (an IVF index goes through
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from densephrases_tpu_torch.index.flat import FlatIndex
@@ -27,7 +29,9 @@ class FusedServer:
     """Wraps a DensePhrases model whose MIPS runs a single-device int8
     FlatIndex. Drop-in for ``.search`` with the phrase unit."""
 
-    def __init__(self, model):
+    def __init__(self, model, chunk: Optional[int] = None):
+        """chunk: the rows of the stage-1 scan's chunks (None: the index's).
+        Each chunk's top-k is exact, so the ids do not depend on it."""
         index = model.mips.index
         if not (isinstance(index, FlatIndex) and index.mesh is None
                 and index.quant == "int8"):
@@ -35,6 +39,7 @@ class FusedServer:
                 "fused serving needs a single-device int8 FlatIndex")
         self.model = model
         self.mips = model.mips
+        self.chunk = chunk or index.chunk
 
     def submit(self, queries, top_k: int = 10, max_answer_length: int = 10,
                aggregate: bool = True, agg_strat: str = "opt1",
@@ -50,7 +55,7 @@ class FusedServer:
                 for q in queries
             ]
         query = model.query2vec(queries)
-        hits = self.mips.search_dense(query, top_k=top_k)
+        hits = self.mips.search_dense(query, top_k=top_k, chunk=self.chunk)
         buf, layout = self.mips.rescore(query, *hits,
                                         max_answer_length=max_answer_length)
         done = None

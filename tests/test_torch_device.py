@@ -61,6 +61,8 @@ ENTRY_POINTS = {
     "train_cross_encoder.main": train_cross_encoder.main,
     "train_mlm.main": train_mlm.main,
     "run_demo.main": run_demo.main,
+    # exported as densephrases_tpu_torch.Encoder: a user's constructor
+    "Encoder.__init__": encoder.PhraseEncoder.__init__,
 }
 
 HELPERS = {
@@ -83,7 +85,6 @@ HELPERS = {
     "IVFIndex._train_sample": IVFIndex._train_sample,
     "IVFIndex._finish_build": IVFIndex._finish_build,
     "encoder.init_pre_batch": encoder.init_pre_batch,
-    "encoder.PhraseEncoder.__init__": encoder.PhraseEncoder.__init__,
 }
 
 
@@ -104,6 +105,20 @@ def test_helper_takes_its_device_from_the_caller(name):
     param = inspect.signature(HELPERS[name]).parameters["device"]
     assert param.kind is inspect.Parameter.KEYWORD_ONLY, (name, param.kind)
     assert param.default is inspect.Parameter.empty, (name, param.default)
+
+
+def test_exported_encoder_is_an_entry_point(monkeypatch):
+    import densephrases_tpu_torch
+
+    assert densephrases_tpu_torch.Encoder is encoder.PhraseEncoder
+    cfg = BertConfig.tiny()
+    enc = densephrases_tpu_torch.Encoder(cfg, None, None, True, device="cpu")
+    assert enc.params.with_teacher and enc.params.device.type == "cpu"
+    assert not densephrases_tpu_torch.Encoder(cfg, device="cpu") \
+        .params.with_teacher
+    _no_gpu(monkeypatch)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        densephrases_tpu_torch.Encoder(cfg)
 
 
 def _no_gpu(monkeypatch):

@@ -163,3 +163,37 @@ def test_failed_build_falls_back_with_a_warning(monkeypatch, caplog):
     assert "native build failed" in caplog.text
     bufs = [b"abc" * 50]
     assert native.decompress_batch(native.compress_batch(bufs), [150]) == bufs
+
+
+def test_threads_share_one_build(monkeypatch, tmp_path):
+    # MIPS's background metadata preload and its f2o load reach the native
+    # runtime from two threads of one process at once: one builds, the
+    # other waits for it (a second g++ into the same temp name lost the
+    # race with the first's rename)
+    import threading
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_build_failed", False)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    builds, errors = [], []
+    real_build = native._build
+
+    def counted(out):
+        builds.append(out)
+        return real_build(out)
+
+    monkeypatch.setattr(native, "_build", counted)
+
+    def use():
+        try:
+            assert native.available()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=use) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors and len(builds) == 1
+    assert native.library_path().exists()

@@ -253,6 +253,39 @@ def test_fused_matches_modular(setup):
             assert r["answer"] == r["context"][r["start_pos"]:r["end_pos"]]
 
 
+@pytest.mark.parametrize("chunk", [160, 300])
+def test_fused_chunk_keeps_the_ids(setup, chunk):
+    # the reference's FusedServer(model, chunk): each chunk's top-k is
+    # exact, so any chunk gives the default chunk's ids; 300 does not
+    # divide the padded flat buffer, so its last chunk is a short one
+    model = setup["model"]
+    index = model.mips.index
+    assert index.codes.shape[0] % index.chunk == 0
+    assert (chunk == 300) == (index.codes.shape[0] % chunk != 0)
+    queries = ["w3 w4 paris", "river", "end of para w9", "w1 w2"]
+    want = FusedServer(model).search(queries, top_k=5)
+    fused = FusedServer(model, chunk)
+    assert fused.chunk == chunk
+    assert _ids(fused.search(queries, top_k=5)) == _ids(want)
+    q = model.query2vec(queries)
+    got = model.mips.search_dense(q, top_k=7, chunk=chunk)
+    ref = model.mips.search_dense(q, top_k=7)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_port_exports_cover_the_reference():
+    import densephrases_tpu
+    import densephrases_tpu_torch
+
+    assert set(densephrases_tpu.__all__) <= set(densephrases_tpu_torch.__all__)
+    for name in densephrases_tpu.__all__:
+        assert getattr(densephrases_tpu_torch, name) is not None
+    from densephrases_tpu_torch import Options
+
+    assert Options is densephrases_tpu_torch.options.Options
+
+
 def test_pipelined_matches_sync(setup):
     fused = FusedServer(setup["model"])
     batches = [["w3 w4 paris", "river"], ["w1"], ["w9 w8", "end", "para w2"]]
@@ -496,7 +529,7 @@ SLICE_10 = [
                                        "strip_predictions", "sample_jsonl"]),
     (port_qg, jax_qg, ["cloze_qg", "cloze_qg_extended", "hf_seq2seq_qg",
                        "generate_squad", "filter_qg"]),
-    (FusedServer, JaxFusedServer, ["submit", "search"]),
+    (FusedServer, JaxFusedServer, ["__init__", "submit", "search"]),
 ]
 
 
@@ -558,6 +591,10 @@ DELIBERATE = {
     # one process a rank: each rank passes its own shard, not all of them
     "MeshShardedIVF.__init__": (port_sharded.MeshShardedIVF.__init__,
                                 jax_sharded.MeshShardedIVF.__init__),
+    # the exported Encoder draws fresh towers from a torch.Generator where
+    # the reference takes a JAX key
+    "PhraseEncoder.__init__": (port_encoder.PhraseEncoder.__init__,
+                               jax_encoder.PhraseEncoder.__init__),
 }
 
 
@@ -574,6 +611,9 @@ def test_deliberate_signature_exceptions(name):
     elif name == "mlm_loss":
         assert ref[:4] == port[:4] and ref[4:] == ["rng"]
         assert port[4:] == ["draws"]
+    elif name == "PhraseEncoder.__init__":
+        assert ref == ["config", "params", "rng", "with_teacher"]
+        assert port == ["config", "params", "generator", "with_teacher"]
     elif name == "MeshShardedIVF.__init__":
         assert ref[0] == "sub_indexes" and port[0] == "sub_index"
         assert port[1:] == ref[1:]

@@ -156,3 +156,20 @@ def test_flat_index_matches_exact_dequantized_scores():
 def test_flat_index_rejects_non_int8():
     with pytest.raises(ValueError, match="int8"):
         FlatIndex(np.zeros((4, 8), np.float32), device="cpu")
+
+
+def test_flat_index_takes_a_tensor_without_numpy(monkeypatch):
+    # codes given as a tensor (on the card: a CUDA tensor, which has no
+    # numpy view) are copied tensor to tensor, never through numpy
+    rng = np.random.default_rng(4)
+    codes = rng.integers(-128, 128, (3000, 16)).astype(np.int8)
+    q = rng.normal(size=(3, 16)).astype(np.float32)
+    want = FlatIndex(codes, device="cpu").search(q, top_k=5)
+
+    def no_numpy(self, *a, **kw):
+        raise TypeError("can't convert this tensor to numpy")
+
+    monkeypatch.setattr(torch.Tensor, "__array__", no_numpy)
+    got = FlatIndex(torch.from_numpy(codes), device="cpu").search(q, top_k=5)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

@@ -219,6 +219,23 @@ def test_assign_corpus_hier_group_edges():
         assert (got == ref).mean() >= ROW_AGREE, pg
 
 
+@pytest.mark.parametrize("kind", ["fp32", "int8"])
+def test_assign_corpus_hier_in_pieces(quantizer, kind, monkeypatch):
+    # a parent group's rows go through in pieces of at most rows_max (512
+    # at this GROUP_ELEMS): the same assignment as in one piece, and the
+    # reference's
+    x, off, sc, cents, l1, offs = quantizer[kind]
+    whole = tk.assign_corpus_hier(torch.from_numpy(x), l1, cents, offs,
+                                  probe=4, offset=off, scale=sc)
+    monkeypatch.setattr(tk, "GROUP_ELEMS", 1)
+    pieces = tk.assign_corpus_hier(torch.from_numpy(x), l1, cents, offs,
+                                   probe=4, offset=off, scale=sc)
+    np.testing.assert_array_equal(pieces, whole)
+    ref = jk.assign_corpus_hier(jnp.asarray(x), l1, cents, offs, probe=4,
+                                offset=off, scale=sc)
+    assert (pieces == ref).mean() >= ROW_AGREE
+
+
 # -------------------------------------------------------------- balancing
 @pytest.mark.parametrize("with_offs", [False, True])
 def test_balance_lists_hier_matches_reference(with_offs):
