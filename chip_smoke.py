@@ -101,6 +101,15 @@ written kernel on that path against its plain PyTorch version:
                  examples; f. a corpus of the checkout's own prose,
                  ``cli.train_mlm`` at BERT-base width, ``dsmall``,
                  ``bench_ivf_real`` and ``bench_serve_real``
+  13. bench      the repository's serve benchmark and the reference-scale
+                 coarse study: a. ``densephrases_tpu_torch.bench.main`` at
+                 the root bench.py's size (1M x 768 over 10,000 docs,
+                 BERT-base, batch 64; its JSON line printed), then on its
+                 store the fused answers against ``DensePhrases.search``,
+                 the pipelined modes against the synchronous one and the
+                 CPU baseline's ids against the device flat scan's; b.
+                 ``bench_ivf_scale --coarse_only`` at 2^20 requested lists
+                 over a cut corpus, the probe against an exact top-k
 
 Kernel A's launch counter is zeroed right before phase 3 and read after
 phase 4's main-path work; kernels C and D's are zeroed right before phase 5
@@ -114,8 +123,9 @@ processes, are not counted); A, C and D's from the start of phase 11 to
 its end, leaving out the in-process runs its served answers are compared
 with (the ``run_demo`` subprocesses are not counted); A-D's from the start
 of phase 12 to the end of 12d, and again from 12e to its end, each tool's
-own part checked; phases 6-12 must equal the counts their paths imply. A kernel of a path that never
-launched fails the run.
+own part checked; A's from the first warm-up batch of 13a to its last
+window; phases 6-13 must equal the counts their paths imply. A kernel of
+a path that never launched fails the run.
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when there is no CUDA device. The second-last
 lines are a JSON object of per-kernel results and the card's
@@ -3436,6 +3446,219 @@ def phase_tools(tmp, smi):
     return counts
 
 
+# phase 13: the serve benchmark at the root bench.py's size (a) and the
+# coarse study at the reference's 2^20 requested lists (b), its corpus cut
+# to the rows the phase affords (the reference: 10,485,760; at 2^20 rows
+# k-means has too few members for 2^20 children and the balancer too few
+# long lists to grow past them)
+BENCH_ID_RTOL = 1e-5  # CPU baseline vs device scan: fp32 sums, other order
+COARSE_NLIST = 1 << 20
+COARSE_N = 5 << 18  # 1,310,720
+COARSE_NPROBE = 16
+
+
+def bench_reference_keys():
+    """(keys, stages_ms keys) of the JSON line the root bench.py prints,
+    read from its source (it imports jax, so it is parsed, not run)."""
+    import ast
+
+    with open(os.path.join(HERE, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+                == "dumps" and node.args
+                and isinstance(node.args[0], ast.Dict)):
+            top = node.args[0]
+            stages = next(v for k, v in zip(top.keys, top.values)
+                          if k.value == "stages_ms")
+            return ({k.value for k in top.keys},
+                    {k.value for k in stages.keys})
+    raise AssertionError("bench.py prints no JSON dict")
+
+
+def positive_leaves(obj, path="res"):
+    """The paths of the numbers in a JSON value that are not positive."""
+    if isinstance(obj, dict):
+        return [b for k, v in obj.items()
+                for b in positive_leaves(v, f"{path}.{k}")]
+    if isinstance(obj, list):
+        return [b for i, v in enumerate(obj)
+                for b in positive_leaves(v, f"{path}[{i}]")]
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return [] if obj > 0 else [path]
+    return []
+
+
+def spans_of(outs):
+    return [[(r["doc_idx"], r["start_idx"], r["end_idx"]) for r in ret]
+            for ret in outs]
+
+
+def topk_lower_id(scores, k):
+    """Exact top-k ids of each row, ties to the lower id: ``torch.topk``
+    for the k-th value, then every column at or above it ordered by score
+    descending and id ascending."""
+    kth = torch.topk(scores, k, dim=1).values[:, -1:]
+    out = []
+    for row, t in zip(scores, kth):
+        cols = torch.nonzero(row >= t).flatten()  # ascending ids
+        order = torch.sort(row[cols], descending=True, stable=True).indices
+        out.append(cols[order[:k]])
+    return torch.stack(out)
+
+
+def phase_bench(tmp, smi):
+    """Phase 13: the repository's serve benchmark and the reference-scale
+    coarse study through their entry points.
+
+    a. ``densephrases_tpu_torch.bench.main`` at its defaults (1M x 768 over
+       10,000 docs, BERT-base towers, batch 64, top-k 10), ``--vocab_kind
+       whole_word`` (no ``tokenizers`` here), its store kept: the JSON line
+       has the root bench.py's keys but ``dispatch_floor`` and every number
+       in it is positive (``mips_init_stages``, in whole milliseconds, at
+       least 0); kernel A launched 2 x 12 times for each batch
+       through the towers (``bench.towered_batches``). Then, outside the
+       count, on the kept store: one batch's ``FusedServer`` answers equal
+       ``DensePhrases.search``'s, the pipelined (depth 2 and 4) answers
+       equal the synchronous ones, and ``cpu_mips_topk``'s ids equal the
+       device flat scan's for one batch of the baseline's queries (rounded
+       to bf16, as the scan rounds them), but for ids within BENCH_ID_RTOL
+       of the k-th score.
+    b. ``bench_ivf_scale.main --coarse_only --nlist 2^20`` over COARSE_N
+       rows: the list lengths sum to the rows, ``nlist_actual`` >= 2^20,
+       ``centroid_bytes`` = nlist_actual x 768 x 2, and the probe's ids at
+       batch 64, nprobe 16 equal an exact top-k over the same bf16 scores
+       with ties to the lower id.
+
+    Returns {"A": kernel A's launches in a}."""
+    from densephrases_tpu_torch import bench
+    from densephrases_tpu_torch.index.store import PhraseStore
+    from densephrases_tpu_torch.models.attention import ATTENTION_FWD
+    from densephrases_tpu_torch.models.bert import BertConfig
+    from densephrases_tpu_torch.ops.ivf_pack import probe
+    from densephrases_tpu_torch.ops.kmeans import _bf16
+    from densephrases_tpu_torch.tools import bench_ivf_scale
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "bench")
+    os.makedirs(root)
+
+    # ---- a. the serve benchmark (A from zero: warm-up to the last window)
+    ATTENTION_FWD.launches = 0
+    res = bench.main(["--vocab_kind", "whole_word", "--store_dir", root],
+                     device=DEVICE)
+    torch.cuda.synchronize()
+    launches = ATTENTION_FWD.launches
+    config = BertConfig()
+    want_a = 2 * config.num_hidden_layers * bench.towered_batches()
+    keys, stage_keys = bench_reference_keys()
+    log("13 bench", part="a", value=res["value"], mode=res["mode"],
+        vs_baseline=res["vs_baseline"], a_launches=launches,
+        a_expected=want_a, seconds=round(time.perf_counter() - t_phase, 3))
+    if launches != want_a:
+        raise AssertionError(f"13a: A launched {launches} != {want_a}")
+    if set(res) != keys or set(res["stages_ms"]) != stage_keys - {
+            "dispatch_floor"}:
+        raise AssertionError(f"13a: keys {sorted(res)} / "
+                             f"{sorted(res['stages_ms'])} != bench.py's")
+    # MIPS rounds its stage seconds to the millisecond (as the reference
+    # does): a stage under half of one reads 0.0
+    bad = positive_leaves({k: v for k, v in res.items()
+                           if k != "mips_init_stages"})
+    bad += [k for k, v in res["mips_init_stages"].items() if v < 0]
+    if bad or any(len(w) != bench.N_WINDOWS
+                  for w in res["windows_s"].values()):
+        raise AssertionError(f"13a: not positive {bad} or windows "
+                             f"{res['windows_s']}")
+
+    with uncounted(ATTENTION_FWD):
+        store = PhraseStore.load(os.path.join(root, "store"))
+        if (store.num_docs, store.n_vecs) != (
+                bench.N_DOCS, bench.N_DOCS * bench.VECS_PER_DOC):
+            raise AssertionError(f"13a store: {store.num_docs} docs, "
+                                 f"{store.n_vecs} vectors")
+        model, fused, _ = bench.serve_model(
+            store, config, bench.bench_vocab("whole_word"), device=DEVICE)
+        queries = bench.bench_queries()
+        sync = fused.search(queries, top_k=bench.TOP_K)
+        _, modular = model.search(queries, retrieval_unit="phrase",
+                                  top_k=bench.TOP_K, return_meta=True)
+        if spans_of([r[:bench.TOP_K] for r in sync]) != spans_of(modular):
+            raise AssertionError("13a: FusedServer != DensePhrases.search")
+        for depth in (2, 4):
+            outs = fused.search_pipelined([queries] * 3, depth=depth,
+                                          top_k=bench.TOP_K)
+            if [spans_of(o) for o in outs] != [spans_of(sync)] * 3:
+                raise AssertionError(f"13a: pipelined depth {depth} != sync")
+        q = bench.baseline_queries(np.random.default_rng(7), bench.BATCH,
+                                   config.hidden_size)
+        q = torch.as_tensor(q).to(torch.bfloat16).float().numpy()
+        vecs = np.asarray(store.vecs[:])
+        t0 = time.perf_counter()
+        cpu_s, cpu_i = bench.cpu_mips_topk(vecs, q, bench.TOP_K,
+                                           store.offset, store.scale)
+        cpu_s_time = time.perf_counter() - t0
+        _, dev_i = model.mips.index.search(q, top_k=bench.TOP_K)
+        del model, fused
+    swapped = 0
+    for b in range(q.shape[0]):
+        diff = set(cpu_i[b].tolist()) ^ set(dev_i[b].tolist())
+        if not diff:
+            continue
+        rows = np.array(sorted(diff))
+        s = (q[b] @ (vecs[rows].astype(np.float32) / store.scale).T
+             + q[b].sum() * store.offset)
+        kth = float(cpu_s[b, -1])
+        if np.any(np.abs(s - kth) > BENCH_ID_RTOL * abs(kth)):
+            raise AssertionError(f"13a: query {b} CPU ids {cpu_i[b]} != "
+                                 f"device ids {dev_i[b]}")
+        swapped += 1
+    del vecs
+    log("13 bench", part="a", fused_equals_modular=True,
+        pipelined_equal_sync=True, cpu_ids_equal_device=True,
+        near_tie_rows=swapped, cpu_topk_s=round(cpu_s_time, 3),
+        stages_ms=json.dumps(res["stages_ms"]),
+        mips_init_stages=json.dumps(res["mips_init_stages"]))
+    shutil.rmtree(root)
+
+    # ---- b. the coarse study at 2^20 requested lists
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "coarse")
+    out = os.path.join(work, "COARSE.json")
+    cres = bench_ivf_scale.main(
+        ["--coarse_only", "--n", str(COARSE_N), "--nlist", str(COARSE_NLIST),
+         "--workdir", work, "--out", out], device=DEVICE)
+    row = cres["coarse"]
+    d = cres["d"]
+    cdir = bench_ivf_scale.coarse_dir(work, COARSE_N, d, COARSE_NLIST)
+    centroids = np.load(os.path.join(cdir, "centroids.npy"))
+    assign = np.load(os.path.join(cdir, "assign.npy"))
+    k = centroids.shape[0]
+    lens = np.bincount(assign, minlength=k)
+    if (lens.sum() != COARSE_N or len(lens) != k
+            or row["nlist_actual"] != k or k < COARSE_NLIST
+            or row["centroid_bytes"] != k * d * 2):
+        raise AssertionError(f"13b: {k} lists, {lens.sum()} rows, {row}")
+    host = np.load(bench_ivf_scale.corpus_path(work, COARSE_N, d),
+                   mmap_mode="r")
+    qc = torch.as_tensor(bench_ivf_scale.coarse_queries(host),
+                         device=DEVICE)
+    cents = torch.as_tensor(centroids, device=DEVICE)
+    got = probe(qc, cents, COARSE_NPROBE)
+    want = topk_lower_id(_bf16(qc) @ _bf16(cents).T, COARSE_NPROBE)
+    if not torch.equal(got.cpu(), want.cpu()):
+        raise AssertionError("13b: probe ids != exact top-k")
+    del cents, qc
+    torch.cuda.empty_cache()
+    log("13 bench", part="b", seconds=round(time.perf_counter() - t0, 3),
+        rows=COARSE_N, probe_equals_exact_topk=True,
+        coarse=json.dumps(row))
+    shutil.rmtree(work)
+    log("13 bench", seconds=round(time.perf_counter() - t_phase, 3),
+        card=repr(smi))
+    return {"A": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
@@ -3618,6 +3841,10 @@ def main():
     # ---- 12. tools and examples (A-D from zero over a-d, then over e-f)
     tool_launches = phase_tools(tmp, smi)
 
+    # ---- 13. the serve benchmark and the coarse study (A from zero over
+    # the benchmark's warm-up and windows)
+    bench_launches = phase_bench(tmp, smi)
+
     def timing(row, *rows):
         """The line's numbers for one kernel from its headline row; every
         row's numbers beside them."""
@@ -3641,7 +3868,7 @@ def main():
                      + offline_launches["A"] + scale_launches["A"]
                      + trainer_launches["A"] + scale_out_launches["A"]
                      + demo_launches["A"] + tool_launches["at_scale"]["A"]
-                     + tool_launches["real"]["A"]),
+                     + tool_launches["real"]["A"] + bench_launches["A"]),
         "launches_by_path": {"dump_serve": main_path_launches,
                              "train": train_launches["A"],
                              "offline": offline_launches["A"],
@@ -3650,7 +3877,8 @@ def main():
                              "scale_out": scale_out_launches["A"],
                              "demo": demo_launches["A"],
                              "at_scale": tool_launches["at_scale"]["A"],
-                             "real": tool_launches["real"]["A"]},
+                             "real": tool_launches["real"]["A"],
+                             "bench": bench_launches["A"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         **timing(serve_row, *bf16(kernel_rows)),
         "at": "B=64 H=12 L=32 D=64 bf16"}, {

@@ -212,30 +212,50 @@ def sort_children(centroids: np.ndarray, l1_centroids: np.ndarray, *,
     return centroids[order], offsets, order
 
 
+LLOYD_ELEMS = 1 << 29  # [G, rows, K] elements a Lloyd step holds at once
+
+
 def _batched_lloyd(X, C0, *, iters: int):
     """G independent Lloyd runs, one batched product a step. X [G, N, D]
     device rows (fp32, or int8 raw codes), C0 [G, K, D] fp32 → [G, K, D].
 
     An empty cluster takes the row farthest from its centroid: the e-th
     empty cluster of a group the e-th farthest row (ties to the lower row),
-    as the reference reseeds inside its one compiled program."""
+    as the reference reseeds inside its one compiled program.
+
+    A step goes over the rows in chunks of at most ``LLOYD_ELEMS`` [G,
+    rows, K] elements (a parent of the reference's 2^20-list build can
+    hold 10^10), keeping each row's distance to its centroid for the
+    reseed. Two such fp32 tensors are live at once: the distances, made
+    in place from the products (-2·dots + |c|², bit for bit |c|² -
+    2·dots), and the one-hot. With one chunk the sums are one product, as
+    before; with more, they add up chunk by chunk in fp32."""
+    g, n, _ = X.shape
     k = C0.shape[1]
+    rows = max(1, min(n, LLOYD_ELEMS // (g * k)))
     xb = _bf16(X.to(torch.float32))
     C = C0.to(torch.float32)
     for _ in range(iters):
-        dots = torch.einsum("gnd,gkd->gnk", xb, _bf16(C))
-        dist = (C ** 2).sum(-1)[:, None, :] - 2.0 * dots  # [G, N, K]
-        oh = torch.nn.functional.one_hot(torch.argmin(dist, dim=-1), k) \
-            .to(torch.float32)
-        sums = torch.einsum("gnk,gnd->gkd", oh, xb)
-        counts = oh.sum(1)  # [G, K]
+        cb, csq = _bf16(C), (C ** 2).sum(-1)[:, None, :]
+        sums, counts, near = 0.0, 0.0, []
+        for r0 in range(0, n, rows):
+            xr = xb[:, r0:r0 + rows]
+            dist = torch.einsum("gnd,gkd->gnk", xr, cb)
+            dist.mul_(-2.0).add_(csq)  # [G, rows, K]
+            oh = torch.zeros_like(dist).scatter_(
+                2, torch.argmin(dist, dim=-1, keepdim=True), 1.0)
+            sums = sums + torch.einsum("gnk,gnd->gkd", oh, xr)
+            counts = counts + oh.sum(1)  # [G, K]
+            near.append(dist.min(-1).values)
+            del dist, oh
         new_c = torch.where(counts[..., None] > 0,
                             sums / counts.clamp(min=1.0)[..., None], C)
         empty = counts <= 0
-        far = topk(dist.min(-1).values, k)[1]  # [G, K] farthest rows
+        far = topk(torch.cat(near, 1), k)[1]  # [G, K] farthest rows
         rank = (torch.cumsum(empty.to(torch.int64), 1) - 1).clamp(0, k - 1)
-        rows = torch.gather(far, 1, rank)
-        reseed = torch.gather(X, 1, rows[..., None].expand(-1, -1, X.shape[2]))
+        rows_far = torch.gather(far, 1, rank)
+        reseed = torch.gather(
+            X, 1, rows_far[..., None].expand(-1, -1, X.shape[2]))
         C = torch.where(empty[..., None], reseed.to(torch.float32), new_c)
     return C
 

@@ -10,9 +10,9 @@ measures:
 - recall@20 against the exact flat scan, over ``--probes``,
 - the index's bytes (codes, books) and its tensors' bytes on the device,
 - with ``--kernel_rows``, each list-scan kernel alone (C for SQ8 / SQ4, D
-  for PQ / OPQ) on the batch of 64's own block table: CUDA-event ms, its
-  launches in one search, the bound of its work and its share of the
-  whole scan.
+  for PQ / OPQ) on the batch of 64's own block table: CUDA-event ms
+  beside its plain twin's, its launches in one search, the bound of its
+  work and its share of the whole scan.
 
 Each stage is split into a function the tests call: ``gen_corpus_device``
 / ``cache_corpus`` (the corpus, made on the device from a
@@ -26,13 +26,21 @@ The reference's TPU timing harnesses stay behind: its dispatch floor and
 fori-loop repeats (``dispatch_floor_ms``, ``amortized_ms``,
 ``bench_union_repeat``) and the grouped XLA scans it compared against
 (``--no_grouped``, ``--grouped_budget_ms``). Its ``*_rep_*`` keys are
-gone; ``kernel_rows`` measures the kernel itself instead. ``--coarse_only``
-(the 2^20-list probe study, timed by fori loops) is not ported.
+gone; ``kernel_rows`` measures the kernel itself instead.
+
+``--coarse_only`` (``coarse_study``) is the reference-scale coarse study:
+it trains, assigns and balances the coarse quantizer alone at ``--nlist``
+(the reference's full index has 2^20 lists), records each stage's seconds
+and the list lengths, and times the production probe (``ops/ivf_pack.py:
+probe``) at batch 1 and 64, nprobe 16 and 64, by CUDA events over
+``--reps`` calls. It skips the flat phase, as the reference does.
 
 Everything goes under ``--workdir`` and ``--out``, by default in the
 system's temp dir (``tools/_bench.py``), never in the repository.
 
 Run on the card:  python -m densephrases_tpu_torch.tools.bench_ivf_scale
+           python -m densephrases_tpu_torch.tools.bench_ivf_scale \
+               --coarse_only --nlist 1048576
 """
 
 from __future__ import annotations
@@ -317,9 +325,11 @@ def measure(ivf, q1: np.ndarray, q64: np.ndarray, ei1, ei64, probes,
 def kernel_rows(ivf, queries: np.ndarray, probes, *, device="cuda",
                 top_k: int = GT_K, iters: int = 20) -> dict:
     """Each probe's list-scan kernel alone on the batch's own inputs:
-    {"p<nprobe>": {kernel, launches, ms, scan_ms, share_of_scan, bound_ms,
-    bound_by, rows}}. The kernel's inputs are those one ``search`` hands
-    it; ``ms`` is its CUDA-event time on them, ``scan_ms`` that of the whole
+    {"p<nprobe>": {kernel, launches, ms, plain_ms, scan_ms, share_of_scan,
+    bound_ms, bound_by, rows}}. The kernel's inputs are those one
+    ``search`` hands it; ``ms`` is its CUDA-event time on them,
+    ``plain_ms`` its plain twin's (None where the twin does not fit the
+    card), ``scan_ms`` that of the whole
     ``search``; ``launches`` counts its launches in that one search. The
     bound counts the valid rows' codes, the queries or LUTs, the block
     table and the fp32 scores of the valid columns. Timing launches leave
@@ -359,6 +369,13 @@ def kernel_rows(ivf, queries: np.ndarray, probes, *, device="cuda",
         with _bench.uncounted(kernel):
             ms = _bench.device_ms(lambda: real_fn(*a, **kw), device,
                                   iters=iters)
+            try:
+                plain_ms = _bench.device_ms(
+                    lambda: real_fn(*a, **{**kw, "impl": "plain"}), device,
+                    iters=iters)
+            except torch.OutOfMemoryError:  # the twin gathers whole tiles
+                plain_ms = None
+                torch.cuda.empty_cache()
             scan_ms = _bench.device_ms(
                 lambda: ivf.search(q, top_k=top_k, nprobe=nprobe,
                                    as_numpy=False), device, iters=iters)
@@ -375,9 +392,84 @@ def kernel_rows(ivf, queries: np.ndarray, probes, *, device="cuda",
         out[f"p{nprobe}"] = {
             "kernel": "pq_pack_score" if pq else "ivf_pack_score",
             "batch": b, "rows": valid, "launches": launches, "ms": ms,
-            "scan_ms": scan_ms, "share_of_scan": ms / scan_ms,
+            "plain_ms": plain_ms, "scan_ms": scan_ms,
+            "share_of_scan": ms / scan_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
     return out
+
+
+# ------------------------------------------------------------ coarse study
+COARSE_BATCHES, COARSE_PROBES = (1, 64), (16, 64)
+
+
+def coarse_queries(host_codes, seed: int = 1, n_q: int = 64) -> np.ndarray:
+    """The coarse study's probe queries: ``n_q`` sorted random corpus rows,
+    dequantized, not perturbed (the reference's ``--coarse_only`` draw)."""
+    rng = np.random.default_rng(seed)
+    qk = np.sort(rng.integers(0, host_codes.shape[0], n_q))
+    return (np.ascontiguousarray(host_codes[qk]).astype(np.float32)
+            / DEFAULT_SCALE + DEFAULT_OFFSET)
+
+
+def coarse_lists_row(centroids: np.ndarray, assign: np.ndarray,
+                     nlist: int) -> dict:
+    """The list lengths of a coarse quantizer, with the empty lists split
+    between the first ``nlist`` centroids (k-means') and the tail the
+    balancer grew, beside the empties a Poisson(mean) null predicts."""
+    k = centroids.shape[0]
+    lens = np.bincount(assign, minlength=k)
+    mean = float(lens.mean())
+    k_req = min(nlist, k)
+    return {
+        "nlist_requested": nlist,
+        "nlist_actual": int(k),
+        "list_mean": round(mean, 2),
+        "list_max": int(lens.max()),
+        "list_p99": int(np.percentile(lens, 99)),
+        "empty_lists": int((lens == 0).sum()),
+        "empty_in_first_nlist": int((lens[:k_req] == 0).sum()),
+        "empty_in_grown_tail": int((lens[k_req:] == 0).sum()),
+        "poisson_null_empty": int(np.exp(-mean) * k),
+        "centroid_bytes": int(centroids.size * 2),  # bf16 on the device
+    }
+
+
+def coarse_study(host_codes, nlist: int, workdir: str, reps: int = 16,
+                 device="cuda") -> dict:
+    """The coarse quantizer alone at ``nlist`` lists: ``build_coarse`` with
+    the reference's ``--coarse_only`` config (6 k-means iterations, a
+    1M-row sample, balance factor 4) through the shared coarse cache under
+    ``workdir`` (a finished cache is read, and its stage seconds with it),
+    then the production ``probe`` over the centroids on the device, mean
+    ms over ``reps`` calls (CUDA events on the card) at batch 1 and 64,
+    nprobe 16 and 64. Returns the reference's ``coarse`` row."""
+    from densephrases_tpu_torch.index.ivf import IVFConfig, IVFIndex, _upload
+    from densephrases_tpu_torch.ops.ivf_pack import probe
+
+    device = resolve_device(device)
+    n, d = host_codes.shape
+    cfg = IVFConfig(num_clusters=nlist, fine_quant="SQ8", kmeans_iters=6,
+                    sample_ratio=min(1.0, 1e6 / n), balance_factor=4.0)
+    stage_s = {}
+    t0 = time.perf_counter()
+    centroids, assign, _ = IVFIndex.build_coarse(
+        host_codes, cfg, verbose=True,
+        coarse_cache=coarse_dir(workdir, n, d, nlist), stage_s=stage_s,
+        device=device)
+    _bench.sync(device)
+    row = {"stage_s": stage_s or {"cached": True},
+           "total_s": time.perf_counter() - t0}
+    row.update(coarse_lists_row(centroids, assign, nlist))
+    cents = _upload(centroids, torch.float32, device)
+    q = torch.as_tensor(coarse_queries(host_codes), device=device)
+    for b in COARSE_BATCHES:
+        for nprobe in COARSE_PROBES:
+            row[f"probe_b{b}_p{nprobe}_ms"] = _bench.device_ms(
+                lambda: probe(q[:b], cents, nprobe), device, iters=reps)
+    del cents
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
 
 
 # -------------------------------------------------------------------- main
@@ -395,6 +487,12 @@ def parse_args(argv=None):
                     help="comma list of nprobe values to measure")
     ap.add_argument("--n_rep", type=int, default=5,
                     help="timed searches a point (median)")
+    ap.add_argument("--reps", type=int, default=16,
+                    help="probe calls a point of --coarse_only (mean)")
+    ap.add_argument("--coarse_only", action="store_true",
+                    help="train, assign and balance the coarse quantizer "
+                         "only and time the probe (the nlist=2^20 study); "
+                         "skips the flat phase. Use a dedicated --out")
     ap.add_argument("--kernel_rows", action="store_true",
                     help="also time each list-scan kernel alone at batch "
                          "64 (CUDA events), with its bound")
@@ -428,6 +526,21 @@ def main(argv=None, device="cuda") -> dict:
                 "device": str(device),
                 "device_name": (torch.cuda.get_device_name(device)
                                 if device.type == "cuda" else "cpu")})
+
+    if args.coarse_only:
+        t0 = time.perf_counter()
+        host_codes, _, gen_s = load_or_make_corpus(
+            cache, args.n, args.d, device=device, keep_on_device=False)
+        if gen_s is not None:
+            res["gen_s"] = gen_s
+        res["corpus_s"] = time.perf_counter() - t0
+        res["reps"] = args.reps
+        _bench.write_json(out_path, res)
+        res["coarse"] = coarse_study(host_codes, args.nlist, args.workdir,
+                                     args.reps, device=device)
+        _bench.write_json(out_path, res)
+        print(json.dumps(res))
+        return res
 
     t0 = time.perf_counter()
     gt_path = cache + ".gt20.npz"

@@ -1,9 +1,11 @@
-"""Stage timers: per-stage wall clock for the serve pipeline.
+"""Stage timers and the profiler trace of the serve pipeline.
 
 ``StageTimer`` is the counterpart of the one in
 ``densephrases_tpu/utils/profiling.py``. On CUDA a stage's wall clock
 covers the host's enqueue time unless the stage ends in a synchronising
 call (``.cpu()``, ``.item()``), since kernels launch asynchronously.
+``trace`` is the counterpart of ``xla_trace``: a ``torch.profiler`` trace
+of the host and, where there is a card, the device.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import contextlib
 import logging
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 logger = logging.getLogger(__name__)
 
@@ -53,3 +55,22 @@ class StageTimer:
         for name, row in self.summary().items():
             logger.info("%s%s: %.1fms x%d", prefix, name, row["mean_ms"],
                         row["count"])
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """``torch.profiler`` trace of the block, written to ``log_dir`` as a
+    Chrome trace (TensorBoard's layout); does nothing when log_dir is
+    None."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
+        yield

@@ -28,6 +28,7 @@ from densephrases_tpu.index.store import PhraseStore as JaxPhraseStore
 from densephrases_tpu.models.bert import BertConfig as JaxBertConfig
 from densephrases_tpu.model import DensePhrases as JaxDensePhrases
 from densephrases_tpu.serve.fused import FusedServer as JaxFusedServer
+from densephrases_tpu.models import bert as jax_bert
 from densephrases_tpu.models import encoder as jax_encoder
 from densephrases_tpu.models.encoder import init_encoder_params as jax_init
 from densephrases_tpu.ops import kmeans as jax_kmeans
@@ -61,6 +62,7 @@ from densephrases_tpu_torch.index.oracle import check_top1
 from densephrases_tpu_torch.index.search import MIPS
 from densephrases_tpu_torch.index.store import PhraseStore
 from densephrases_tpu_torch.model import DensePhrases
+from densephrases_tpu_torch.models import bert as port_bert
 from densephrases_tpu_torch.models import encoder as port_encoder
 from densephrases_tpu_torch.models.bert import BertConfig
 from densephrases_tpu_torch.models.from_jax import encoder_from_jax
@@ -284,6 +286,48 @@ def test_port_exports_cover_the_reference():
     from densephrases_tpu_torch import Options
 
     assert Options is densephrases_tpu_torch.options.Options
+
+
+SUBPACKAGES = ["index", "models", "ops", "data", "eval"]
+# the names a reference subpackage exports that the port's does not, with
+# what stands in their place
+EXPORT_DIFFERENCES = {"models": {"init_bert_params": "BertModel",
+                                 "bert_forward": "BertModel"}}
+
+
+@pytest.mark.parametrize("pkg", SUBPACKAGES)
+def test_subpackage_exports_cover_the_reference(pkg):
+    # densephrases_tpu/<pkg>/__init__.py's names, from the port's <pkg>
+    import importlib
+
+    ref = importlib.import_module(f"densephrases_tpu.{pkg}")
+    port = importlib.import_module(f"densephrases_tpu_torch.{pkg}")
+    names = {n for n, v in vars(ref).items()
+             if not n.startswith("_") and not inspect.ismodule(v)}
+    assert names, pkg
+    missing = EXPORT_DIFFERENCES.get(pkg, {})
+    assert set(missing) <= names
+    for name in sorted(names - set(missing)):
+        got = getattr(port, name)
+        assert getattr(got, "__name__", name) == getattr(
+            getattr(ref, name), "__name__", name), name
+        if not callable(got):  # a constant: the reference's value
+            assert got == getattr(ref, name), name
+    for name, instead in missing.items():
+        assert not hasattr(port, name) and hasattr(port, instead), name
+
+
+@pytest.mark.parametrize("pkg", SUBPACKAGES)
+def test_subpackage_import_leaves_jax_out(pkg):
+    from densephrases_tpu_torch.index import MIPS  # noqa: F401 (the repair)
+
+    code = (f"import sys\nfrom densephrases_tpu_torch.{pkg} import *\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'densephrases_tpu' or m.startswith('densephrases_tpu.')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_pipelined_matches_sync(setup):
@@ -595,6 +639,10 @@ DELIBERATE = {
     # the reference takes a JAX key
     "PhraseEncoder.__init__": (port_encoder.PhraseEncoder.__init__,
                                jax_encoder.PhraseEncoder.__init__),
+    # models/ exports the nn.Module BertModel in place of the functional
+    # init_bert_params(rng, config) and bert_forward(params, ...): the
+    # module holds its weights, drawn by init_weights(generator)
+    "BertModel": (port_bert.BertModel.__init__, jax_bert.init_bert_params),
 }
 
 
@@ -614,6 +662,12 @@ def test_deliberate_signature_exceptions(name):
     elif name == "PhraseEncoder.__init__":
         assert ref == ["config", "params", "rng", "with_teacher"]
         assert port == ["config", "params", "generator", "with_teacher"]
+    elif name == "BertModel":
+        assert ref == ["rng", "config", "dtype"] and port == ["config"]
+        assert _params(jax_bert.bert_forward)[:2] == ["params", "input_ids"]
+        assert _params(port_bert.BertModel.forward)[:3] == [
+            "input_ids", "attention_mask", "token_type_ids"]
+        assert _params(port_bert.BertModel.init_weights) == ["generator"]
     elif name == "MeshShardedIVF.__init__":
         assert ref[0] == "sub_indexes" and port[0] == "sub_index"
         assert port[1:] == ref[1:]

@@ -10,6 +10,7 @@ path (the corpus generators draw different bits: ``jax.random`` against a
 ``torch.Generator``). Also: no new module imports jax or the JAX package,
 and no tool writes into the repository by default."""
 
+import json
 import os
 import subprocess
 import sys
@@ -95,6 +96,60 @@ def scale(tmp_path_factory):
             "res": res, "out": out}
 
 
+COARSE_N, COARSE_D = 16384, 16
+COARSE_NLIST = 8192  # IVFConfig.two_level_clusters: the two-level path
+
+
+def test_coarse_study_row_equals_the_reference(tmp_path):
+    # --coarse_only through main on a seeded cache; the JAX side's row from
+    # its IVFIndex.build_coarse with the reference tool's config and
+    # formulas (densephrases_tpu/tools/bench_ivf_scale.py:321-352)
+    work, out = str(tmp_path / "work"), str(tmp_path / "coarse.json")
+    codes = _seeded_corpus(
+        bench_ivf_scale.corpus_path(work, COARSE_N, COARSE_D), n=COARSE_N,
+        d=COARSE_D, n_clusters=64)
+    argv = ["--coarse_only", "--n", str(COARSE_N), "--d", str(COARSE_D),
+            "--nlist", str(COARSE_NLIST), "--reps", "2", "--workdir", work,
+            "--out", out]
+    res = bench_ivf_scale.main(argv, device="cpu")
+    row = res["coarse"]
+    cfg = JaxIVFConfig(num_clusters=COARSE_NLIST, fine_quant="SQ8",
+                       kmeans_iters=6, sample_ratio=min(1.0, 1e6 / COARSE_N),
+                       balance_factor=4.0)
+    assert COARSE_NLIST >= cfg.two_level_clusters
+    centroids, assign, _ = JaxIVFIndex.build_coarse(codes, cfg)
+    centroids, assign = np.asarray(centroids), np.asarray(assign)
+    lens = np.bincount(assign, minlength=centroids.shape[0])
+    mean = float(lens.mean())
+    k_req = min(COARSE_NLIST, centroids.shape[0])
+    want = {
+        "nlist_requested": COARSE_NLIST,
+        "nlist_actual": int(centroids.shape[0]),
+        "list_mean": round(mean, 2),
+        "list_max": int(lens.max()),
+        "list_p99": int(np.percentile(lens, 99)),
+        "empty_lists": int((lens == 0).sum()),
+        "empty_in_first_nlist": int((lens[:k_req] == 0).sum()),
+        "empty_in_grown_tail": int((lens[k_req:] == 0).sum()),
+        "poisson_null_empty": int(np.exp(-mean) * centroids.shape[0]),
+        "centroid_bytes": int(centroids.size * 2),
+    }
+    assert {k: row[k] for k in want} == want
+    assert want["nlist_actual"] > COARSE_NLIST  # the balancer grew lists
+    assert set(row["stage_s"]) == {"sample_s", "kmeans_s", "assign_s",
+                                   "balance_s"}
+    probes = [f"probe_b{b}_p{p}_ms" for b in (1, 64) for p in (16, 64)]
+    assert set(row) == set(want) | {"stage_s", "total_s"} | set(probes)
+    assert all(row[k] > 0 for k in probes)
+    assert "flat_b64_ms" not in res  # the flat phase is skipped
+    with open(out) as f:
+        assert json.load(f)["coarse"] == row
+    # a second run reads the finished coarse cache and its stage clocks
+    again = bench_ivf_scale.main(argv + ["--fresh"], device="cpu")["coarse"]
+    assert {k: again[k] for k in want} == want
+    assert again["stage_s"] == row["stage_s"]
+
+
 def test_gen_corpus_device_and_cache(tmp_path):
     # the reference's distribution contract (test_tools.py), on the port's
     # torch.Generator corpus, and the memmap cache round trip
@@ -169,6 +224,7 @@ def test_grid_over_a_shared_coarse_cache(scale):
                                    else "ivf_pack_score")
             # on the CPU the wrappers run their plain twins: no launch
             assert k["launches"] == 0 and k["rows"] > 0
+            assert k["ms"] > 0 and k["plain_ms"] > 0
             assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes",
                                                            "operations")
     # SQ8 at full probe scans every list: the flat top-20

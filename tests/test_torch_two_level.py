@@ -137,6 +137,73 @@ def test_batched_lloyd_reseeds_empty_clusters_like_reference():
         assert (np.abs(X[g] - one[g, c]).max(1) == 0).any(), (g, c)
 
 
+def _lloyd_with_int64_one_hot(X, C0, iters):
+    """_batched_lloyd as it stood before its [G, N, K] peak was cut: the
+    distances beside the products, an int64 one-hot and its fp32 copy."""
+    k = C0.shape[1]
+    xb = tk._bf16(X.to(torch.float32))
+    C = C0.to(torch.float32)
+    for _ in range(iters):
+        dots = torch.einsum("gnd,gkd->gnk", xb, tk._bf16(C))
+        dist = (C ** 2).sum(-1)[:, None, :] - 2.0 * dots
+        oh = torch.nn.functional.one_hot(torch.argmin(dist, dim=-1), k) \
+            .to(torch.float32)
+        sums = torch.einsum("gnk,gnd->gkd", oh, xb)
+        counts = oh.sum(1)
+        new_c = torch.where(counts[..., None] > 0,
+                            sums / counts.clamp(min=1.0)[..., None], C)
+        empty = counts <= 0
+        far = tk.topk(dist.min(-1).values, k)[1]
+        rank = (torch.cumsum(empty.to(torch.int64), 1) - 1).clamp(0, k - 1)
+        rows = torch.gather(far, 1, rank)
+        reseed = torch.gather(X, 1, rows[..., None].expand(-1, -1, X.shape[2]))
+        C = torch.where(empty[..., None], reseed.to(torch.float32), new_c)
+    return C
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8"])
+def test_batched_lloyd_holds_two_gnk_tensors(kind, monkeypatch):
+    # at 2^20 lists over 10,485,760 rows a stack asked for 13.5 GiB more
+    # with 54.7 GiB held (an int64 one-hot, its fp32 copy, the products and
+    # the distances); the step now keeps two fp32 [G, N, K] tensors and
+    # gives the same centroids bit for bit
+    rng = np.random.default_rng(9)
+    X = np.concatenate([_blobs(300, 16, 5, seed=s)[None] for s in (5, 6, 7)])
+    if kind == "int8":
+        X = float_to_int8(X)
+    C0 = X[:, rng.choice(300, 9, replace=False)].astype(np.float32)
+    C0[0, 3] = 1e3  # an empty cluster: the reseed path runs too
+    want = _lloyd_with_int64_one_hot(torch.from_numpy(X),
+                                     torch.from_numpy(C0), 4)
+
+    def no_one_hot(*a, **k):
+        raise AssertionError("an int64 [G, N, K] one-hot")
+
+    monkeypatch.setattr(torch.nn.functional, "one_hot", no_one_hot)
+    got = tk._batched_lloyd(torch.from_numpy(X), torch.from_numpy(C0),
+                            iters=4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 37, 128])
+def test_batched_lloyd_in_row_chunks(rows, monkeypatch):
+    # a step over chunks of `rows` rows (LLOYD_ELEMS = G x rows x K) gives
+    # the one-chunk centroids up to the fp32 order of the sums, and the
+    # same reseeds (each row's distance is kept across chunks)
+    rng = np.random.default_rng(11)
+    X = np.concatenate([_blobs(300, 16, 5, seed=s)[None] for s in (5, 6)])
+    C0 = X[:, rng.choice(300, 9, replace=False)].copy()
+    C0[0, 3] = 1e3
+    C0[1, 6:] = -1e3
+    one = tk._batched_lloyd(torch.from_numpy(X), torch.from_numpy(C0),
+                            iters=4).numpy()
+    monkeypatch.setattr(tk, "LLOYD_ELEMS", 2 * 9 * rows)
+    got = tk._batched_lloyd(torch.from_numpy(X), torch.from_numpy(C0),
+                            iters=4).numpy()
+    np.testing.assert_allclose(got, one, rtol=0, atol=1e-5 * np.abs(one).max())
+    assert np.abs(got).max() < 100  # every far centroid was reseeded
+
+
 @pytest.mark.parametrize("kind", ["fp32", "int8"])
 def test_kmeans_rounded_matches_reference(kind):
     x, off, sc = _data(kind)
