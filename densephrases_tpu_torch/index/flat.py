@@ -47,6 +47,7 @@ from densephrases_tpu_torch.ops.quant import (
 )
 from densephrases_tpu_torch.ops.topk import topk_merge
 from densephrases_tpu_torch.parallel import all_gather
+from densephrases_tpu_torch.utils import profiling
 from densephrases_tpu_torch.utils.device import resolve_device
 
 NEG_INF = -1e30  # pad-row score (flat.py:33)
@@ -233,16 +234,18 @@ class FlatIndex:
                                   device=self.device)
         k = min(top_k, self.n_total)
         chunk = chunk or self.chunk
-        if self.mesh is not None:
-            vals, ids = self._mesh_search(queries, k, chunk)
-        elif self.quant == "int4":
-            vals, ids = _scan_topk_int4(
-                queries, self.codes, self.n_total, self.int4_offset,
-                self.int4_scale, top_k=k, chunk=chunk)
-        else:
-            vals, ids = _scan_topk(queries, self.codes, self.n_total,
-                                   self.offset, self.scale, top_k=k,
-                                   chunk=chunk)
+        profiling.count("index.flat.chunks", -(-self.codes.shape[0] // chunk))
+        with profiling.span("index.flat.scan"):
+            if self.mesh is not None:
+                vals, ids = self._mesh_search(queries, k, chunk)
+            elif self.quant == "int4":
+                vals, ids = _scan_topk_int4(
+                    queries, self.codes, self.n_total, self.int4_offset,
+                    self.int4_scale, top_k=k, chunk=chunk)
+            else:
+                vals, ids = _scan_topk(queries, self.codes, self.n_total,
+                                       self.offset, self.scale, top_k=k,
+                                       chunk=chunk)
         if k < top_k:  # pad to the requested k for fixed downstream shapes
             pad = top_k - k
             vals = torch.cat([vals, vals.new_full((vals.shape[0], pad),

@@ -57,7 +57,7 @@ from densephrases_tpu_torch.index.ivf import IVFIndex, _upload
 from densephrases_tpu_torch.index.store import PhraseStore
 from densephrases_tpu_torch.ops.pq import unpack_nibbles_dev
 from densephrases_tpu_torch.utils.device import resolve_device
-from densephrases_tpu_torch.utils.profiling import StageTimer
+from densephrases_tpu_torch.utils import profiling
 
 NEG_INF = -1e9
 SCORE_FLOOR = -1e5  # host-side filter for masked/dummy results (ref: index.py:420)
@@ -335,7 +335,6 @@ class MIPS:
         stages["serve_arrays_s"] = round(time.perf_counter() - t, 3)
         self.init_stages = stages
         self.num_docs_list: List[float] = []
-        self.timer = StageTimer()
 
     def _rescore_corpus(self, store: PhraseStore, index, stages: dict):
         """The original-order int8 corpus on the index's device for the
@@ -389,13 +388,14 @@ class MIPS:
         tensors (ref: index.py:189-218). nprobe: IVF lists probed (capped
         at nlist by the index; a flat index ignores it). chunk: a flat
         index's scan chunk (None: the index's own)."""
-        query = torch.as_tensor(query, dtype=torch.float32, device=self.device)
-        b = query.shape[0]
-        qs, qe = query.chunk(2, dim=1)
-        stacked = torch.cat([qs, qe], 0)
-        if self.R is not None:
-            stacked = stacked @ self.R  # rotate queries into code space
-        with self.timer.stage("mips_device"):
+        with profiling.span("index.search_dense"):
+            query = torch.as_tensor(query, dtype=torch.float32,
+                                    device=self.device)
+            b = query.shape[0]
+            qs, qe = query.chunk(2, dim=1)
+            stacked = torch.cat([qs, qe], 0)
+            if self.R is not None:
+                stacked = stacked @ self.R  # rotate queries into code space
             scores, gids = self.index.search(
                 stacked, top_k, nprobe=nprobe, as_numpy=False,
                 **({} if chunk is None else {"chunk": chunk}))
@@ -445,10 +445,12 @@ class MIPS:
                 max_answer_length: int = 10, return_idxs: bool = False):
         """Device half of stage 2: the packed (not yet copied) rescore bundle
         with the hit ids, as ``_pack`` returns it."""
-        res = self._rescore(query, s_gids, e_gids, s_scores, e_scores,
-                            max_answer_length, return_idxs)
+        with profiling.span("index.rescore"):
+            res = self._rescore(query, s_gids, e_gids, s_scores, e_scores,
+                                max_answer_length, return_idxs)
         res["s_gids"], res["e_gids"] = s_gids, e_gids
-        return _pack(res)
+        with profiling.span("serve.copy"):
+            return _pack(res)
 
     def search_phrase(self, query, s_gids, e_gids, s_scores, e_scores,
                       max_answer_length: int = 10, return_idxs: bool = False,
@@ -467,7 +469,7 @@ class MIPS:
                 query, s_gids, e_gids, s_scores, e_scores, max_answer_length,
                 return_idxs, return_sent, vecs_on_device)
         dev_vecs = None
-        with self.timer.stage("rescore_device"):
+        with profiling.span("index.rescore"):
             res = self._rescore(query, s_gids, e_gids, s_scores, e_scores,
                                 max_answer_length, return_idxs)
             if vecs_on_device:
@@ -478,13 +480,19 @@ class MIPS:
                     torch.cat([res.pop("end_vec_for_start"),
                                res.pop("end_vec_anchor")], dim=1))
                 return_idxs = False
-            res["s_gids"], res["e_gids"] = s_gids, e_gids
+        res["s_gids"], res["e_gids"] = s_gids, e_gids
+        with profiling.span("serve.copy"):
             buf, layout = _pack(res)
+        profiling.count("serve.d2h_bytes", buf.numel() * buf.element_size())
+        with profiling.span("serve.wait"):
             # ONE device→host copy for everything stage 3 needs
-            res = _unpack(buf.cpu().numpy(), layout)
-        s_gids, e_gids = res.pop("s_gids"), res.pop("e_gids")
-        outs = self._assemble(res, s_gids, e_gids, return_idxs=return_idxs,
-                              return_sent=return_sent)
+            host = buf.cpu().numpy()
+        with profiling.span("index.assemble"):
+            res = _unpack(host, layout)
+            s_gids, e_gids = res.pop("s_gids"), res.pop("e_gids")
+            outs = self._assemble(res, s_gids, e_gids,
+                                  return_idxs=return_idxs,
+                                  return_sent=return_sent)
         return (outs, dev_vecs) if dev_vecs is not None else outs
 
     def _search_phrase_host(self, query, s_gids, e_gids, s_scores, e_scores,
@@ -498,7 +506,7 @@ class MIPS:
         if self.R is not None:
             qs, qe = qs @ self.R, qe @ self.R
         dev_vecs = None
-        with self.timer.stage("rescore_host"):
+        with profiling.span("index.rescore"):
             s_gids, e_gids, s_scores, e_scores = (
                 torch.as_tensor(t).cpu().numpy()
                 for t in (s_gids, e_gids, s_scores, e_scores))
@@ -521,8 +529,10 @@ class MIPS:
                     for a, b in (("start_vec_anchor", "start_vec_for_end"),
                                  ("end_vec_for_start", "end_vec_anchor")))
                 return_idxs = False
-        outs = self._assemble(res, s_gids, e_gids, return_idxs=return_idxs,
-                              return_sent=return_sent)
+        with profiling.span("index.assemble"):
+            outs = self._assemble(res, s_gids, e_gids,
+                                  return_idxs=return_idxs,
+                                  return_sent=return_sent)
         return (outs, dev_vecs) if dev_vecs is not None else outs
 
     def _assemble(self, res, s_gids, e_gids, return_idxs: bool = False,
@@ -545,46 +555,45 @@ class MIPS:
             end_vecs = np.concatenate(
                 [res["end_vec_for_start"], res["end_vec_anchor"]], axis=1)
 
-        with self.timer.stage("assemble_host"):
-            out = []
-            store = self.store
-            for bi in range(b):
-                cands = []
-                doc_pos, s_local = store.global_to_doc(span_start_gids[bi])
-                _, e_local = store.global_to_doc(span_end_gids[bi])
-                for ci in range(span_start_gids.shape[1]):
-                    score = float(span_scores[bi, ci])
-                    if score <= SCORE_FLOOR:
-                        continue
-                    dpos = int(doc_pos[ci])
-                    meta = store.meta(dpos)
-                    sl, el = int(s_local[ci]), int(e_local[ci])
-                    if sl < 0 or el < 0 or sl >= len(meta.f2o_start) \
-                            or el >= len(meta.f2o_start):
-                        continue
-                    start_pos = int(meta.word2char_start[meta.f2o_start[sl]])
-                    if len(meta.word2char_end) > 0 and el >= 0:
-                        end_pos = int(meta.word2char_end[meta.f2o_start[el]])
-                    else:
-                        end_pos = start_pos + 1
-                    each = {
-                        "context": meta.context,
-                        "title": [meta.title],
-                        "doc_idx": int(store.doc_ids[dpos]),
-                        "start_pos": start_pos, "end_pos": end_pos,
-                        "start_idx": sl, "end_idx": el,
-                        "score": score,
-                        "cand_col": ci,
-                        "start_vec": start_vecs[bi, ci] if return_idxs else None,
-                        "end_vec": end_vecs[bi, ci] if return_idxs else None,
-                    }
-                    each["answer"] = each["context"][each["start_pos"]:each["end_pos"]]
-                    each = self.adjust(each)
-                    if return_sent:
-                        each = self.adjust_sent(each)
-                    cands.append(each)
-                cands.sort(key=lambda x: -x["score"])
-                out.append(cands)
+        out = []
+        store = self.store
+        for bi in range(b):
+            cands = []
+            doc_pos, s_local = store.global_to_doc(span_start_gids[bi])
+            _, e_local = store.global_to_doc(span_end_gids[bi])
+            for ci in range(span_start_gids.shape[1]):
+                score = float(span_scores[bi, ci])
+                if score <= SCORE_FLOOR:
+                    continue
+                dpos = int(doc_pos[ci])
+                meta = store.meta(dpos)
+                sl, el = int(s_local[ci]), int(e_local[ci])
+                if sl < 0 or el < 0 or sl >= len(meta.f2o_start) \
+                        or el >= len(meta.f2o_start):
+                    continue
+                start_pos = int(meta.word2char_start[meta.f2o_start[sl]])
+                if len(meta.word2char_end) > 0 and el >= 0:
+                    end_pos = int(meta.word2char_end[meta.f2o_start[el]])
+                else:
+                    end_pos = start_pos + 1
+                each = {
+                    "context": meta.context,
+                    "title": [meta.title],
+                    "doc_idx": int(store.doc_ids[dpos]),
+                    "start_pos": start_pos, "end_pos": end_pos,
+                    "start_idx": sl, "end_idx": el,
+                    "score": score,
+                    "cand_col": ci,
+                    "start_vec": start_vecs[bi, ci] if return_idxs else None,
+                    "end_vec": end_vecs[bi, ci] if return_idxs else None,
+                }
+                each["answer"] = each["context"][each["start_pos"]:each["end_pos"]]
+                each = self.adjust(each)
+                if return_sent:
+                    each = self.adjust_sent(each)
+                cands.append(each)
+            cands.sort(key=lambda x: -x["score"])
+            out.append(cands)
         return out
 
     # ---------------- context adjustment (ref: index.py:167-187) -----------
@@ -652,8 +661,9 @@ class MIPS:
             return outs  # (results, (start_vecs, end_vecs)): search_phrase
         if aggregate:
             q_texts = q_texts if q_texts is not None else [None] * len(outs)
-            outs = [
-                self.aggregate_results(results, top_k, q_text, agg_strat)
-                for results, q_text in zip(outs, q_texts)
-            ]
+            with profiling.span("index.aggregate"):
+                outs = [
+                    self.aggregate_results(results, top_k, q_text, agg_strat)
+                    for results, q_text in zip(outs, q_texts)
+                ]
         return outs

@@ -24,6 +24,7 @@ from densephrases_tpu_torch.data.tokenization import WordPieceTokenizer
 from densephrases_tpu_torch.index.search import MIPS
 from densephrases_tpu_torch.models.bert import BertConfig
 from densephrases_tpu_torch.models.encoder import EncoderParams, embed_query
+from densephrases_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -64,14 +65,21 @@ class DensePhrases:
     def encode(self, queries: List[str]):
         """Tokenize + both query towers → (query_start, query_end) [B, H]
         device tensors."""
-        feats = convert_questions_to_features(
-            queries, self.tokenizer, self.max_query_length)
-        dev = self.params.device
-        ids, am, tt = (torch.as_tensor(np.stack([getattr(f, k) for f in feats]),
-                                       device=dev)
-                       for k in ("input_ids", "attention_mask",
-                                 "token_type_ids"))
-        return embed_query(self.params, ids, am, tt, attn_impl=self.attn_impl)
+        with profiling.span("towers.tokenize"):
+            feats = convert_questions_to_features(
+                queries, self.tokenizer, self.max_query_length)
+            host = [np.stack([getattr(f, k) for f in feats])
+                    for k in ("input_ids", "attention_mask",
+                              "token_type_ids")]
+        if profiling.active():
+            profiling.count("towers.tokens_real", int(host[1].sum()))
+            profiling.count("towers.tokens_padded", host[1].size)
+        with profiling.span("towers.upload"):  # pageable: may wait
+            ids, am, tt = (torch.as_tensor(a, device=self.params.device)
+                           for a in host)
+        with profiling.span("towers.forward"):
+            return embed_query(self.params, ids, am, tt,
+                               attn_impl=self.attn_impl)
 
     # ----- query encoding (ref: open_utils.py:83-101 query2vec) -----
     def query2vec(self, queries: List[str]):
@@ -83,37 +91,38 @@ class DensePhrases:
     def search(self, query: Union[str, List[str]], retrieval_unit: str = "phrase",
                top_k: int = 10, truecase: bool = True,
                return_meta: bool = False, max_answer_length: int = 10):
-        single = isinstance(query, str)
-        queries = [query] if single else list(query)
-        if truecase and self.truecase is not None:
-            queries = [
-                q if q != q.lower() else self.truecase.get_true_case(q)
-                for q in queries
-            ]
+        with profiling.request():
+            single = isinstance(query, str)
+            queries = [query] if single else list(query)
+            if truecase and self.truecase is not None:
+                queries = [
+                    q if q != q.lower() else self.truecase.get_true_case(q)
+                    for q in queries
+                ]
 
-        if retrieval_unit not in self.UNIT_TO_STRAT:
-            raise NotImplementedError(f"unknown retrieval unit {retrieval_unit}")
-        agg_strat = self.UNIT_TO_STRAT[retrieval_unit]
-        # 2x over-retrieval for coarser units (ref: model.py:79-81)
-        search_top_k = top_k if retrieval_unit == "phrase" else top_k * 2
+            if retrieval_unit not in self.UNIT_TO_STRAT:
+                raise NotImplementedError(f"unknown retrieval unit {retrieval_unit}")
+            agg_strat = self.UNIT_TO_STRAT[retrieval_unit]
+            # 2x over-retrieval for coarser units (ref: model.py:79-81)
+            search_top_k = top_k if retrieval_unit == "phrase" else top_k * 2
 
-        query_vec = self.query2vec(queries)
-        rets = self.mips.search(
-            query_vec, q_texts=queries, top_k=search_top_k, aggregate=True,
-            agg_strat=agg_strat, return_sent=(retrieval_unit == "sentence"),
-            max_answer_length=max_answer_length,
-        )
-        if retrieval_unit == "phrase":
-            answers = [[r["answer"] for r in ret[:top_k]] for ret in rets]
-        elif retrieval_unit in ("sentence", "paragraph"):
-            answers = [[r["context"] for r in ret[:top_k]] for ret in rets]
-        else:  # document
-            answers = [[r["title"][0] for r in ret[:top_k]] for ret in rets]
-        rets = [ret[:top_k] for ret in rets]
+            query_vec = self.query2vec(queries)
+            rets = self.mips.search(
+                query_vec, q_texts=queries, top_k=search_top_k, aggregate=True,
+                agg_strat=agg_strat, return_sent=(retrieval_unit == "sentence"),
+                max_answer_length=max_answer_length,
+            )
+            if retrieval_unit == "phrase":
+                answers = [[r["answer"] for r in ret[:top_k]] for ret in rets]
+            elif retrieval_unit in ("sentence", "paragraph"):
+                answers = [[r["context"] for r in ret[:top_k]] for ret in rets]
+            else:  # document
+                answers = [[r["title"][0] for r in ret[:top_k]] for ret in rets]
+            rets = [ret[:top_k] for ret in rets]
 
-        if single:
-            answers, rets = answers[0], rets[0]
-        return (answers, rets) if return_meta else answers
+            if single:
+                answers, rets = answers[0], rets[0]
+            return (answers, rets) if return_meta else answers
 
     def evaluate(self, qa_pairs, top_k: int = 10, regex: bool = False,
                  max_answer_length: int = 10):

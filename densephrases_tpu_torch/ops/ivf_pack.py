@@ -15,6 +15,11 @@ The reference compiles several static block budgets and picks one by
 the host inside a search: it launches the worst-case (guard) budget, whose
 all-junk tiles exit at once, and the result does not depend on the tier.
 
+The scans trace their steps as the spans ``index.ivf.probe``,
+``index.ivf.block_table``, ``index.ivf.scan``, ``index.ivf.select`` and
+``index.ivf.refine`` (``utils/profiling.py``); while tracing is on they
+also count their work (``_probe_table``, ``_count_scored``).
+
 Kernels, each with its plain twin in this module:
 
 - C, ``pack_score`` (``csrc/ivf_pack_score.cu``): raw SQ8 / SQ4 scores
@@ -36,6 +41,7 @@ import torch
 from densephrases_tpu_torch.ops.kmeans import _bf16
 from densephrases_tpu_torch.ops.pq import pq_lut
 from densephrases_tpu_torch.ops.topk import topk as _top_k
+from densephrases_tpu_torch.utils import profiling
 from densephrases_tpu_torch.utils.cuda_build import CudaKernel
 
 NEG_INF = -1e30
@@ -353,6 +359,35 @@ def block_table(probe_ids, list_offsets, *, nlist: int, cap: int,
     return blk.to(torch.int32), total
 
 
+def _probe_table(q_raw, centroids, list_offsets, nlist_valid, *,
+                 nprobe: int, cap: int, pad_blk: int, budget: int):
+    """The probe and the batch's block table (``block_table``'s result).
+    While tracing is on it also counts, as deferred device sums,
+    ``index.ivf.lists_unique``, the batch's distinct probed lists, and
+    ``index.ivf.rows_own``, each query row's rows in its own probed lists
+    (``min(len, cap)`` a list): the rows it needs scored. The probe's ids
+    are a view of its whole [B, nlist] sort, freed on return."""
+    with profiling.span("index.ivf.probe"):
+        probe_ids = probe(q_raw, centroids, nprobe, nlist_valid)
+    if profiling.active():
+        flat = torch.sort(probe_ids.reshape(-1)).values
+        profiling.count("index.ivf.lists_unique",
+                        (flat[1:] != flat[:-1]).sum() + 1)
+        lens = list_offsets[probe_ids + 1] - list_offsets[probe_ids]
+        profiling.count("index.ivf.rows_own", lens.clamp(max=cap).sum())
+    with profiling.span("index.ivf.block_table"):
+        return block_table(probe_ids, list_offsets,
+                           nlist=centroids.shape[0], cap=cap,
+                           pad_blk=pad_blk, budget=budget)
+
+
+def _count_scored(valid, rows: int):
+    """While tracing is on, ``index.ivf.rows_scored``: query rows × valid
+    packed columns, as a deferred device sum."""
+    if profiling.active():
+        profiling.count("index.ivf.rows_scored", valid.sum() * rows)
+
+
 def _valid_rows(blk, total, n_real: int):
     """(src, valid) per packed column: the sorted row each names, and
     whether it is a real row of a real table slot."""
@@ -377,19 +412,21 @@ def packed_union_scan(q_raw, centroids, list_offsets, codes, row_perm,
     min(top_k, budget*32)."""
     if q_score is None:
         q_score = q_raw
-    nlist = centroids.shape[0]
-    pad_blk = codes.shape[0] // RB - 1
-    blk, total = block_table(probe(q_raw, centroids, nprobe, nlist_valid),
-                             list_offsets, nlist=nlist, cap=cap,
-                             pad_blk=pad_blk, budget=budget)
-    raw = pack_score(q_score.to(torch.bfloat16).contiguous(), codes, blk,
-                     sq4=sq4)
-    qsum = (q_score * offset).sum(-1)  # offset may be a [D] vector
-    src, valid = _valid_rows(blk, total, n_real)
-    s = torch.where(valid[None, :], raw / scale + qsum[:, None],
-                    torch.full_like(raw, NEG_INF))
-    vals, pos = _topk2(s, min(top_k, s.shape[1]))
-    gids = row_perm[src[pos].clamp(0, row_perm.shape[0] - 1)]
+    blk, total = _probe_table(q_raw, centroids, list_offsets, nlist_valid,
+                              nprobe=nprobe, cap=cap,
+                              pad_blk=codes.shape[0] // RB - 1,
+                              budget=budget)
+    with profiling.span("index.ivf.scan"):
+        raw = pack_score(q_score.to(torch.bfloat16).contiguous(), codes,
+                         blk, sq4=sq4)
+    with profiling.span("index.ivf.select"):
+        qsum = (q_score * offset).sum(-1)  # offset may be a [D] vector
+        src, valid = _valid_rows(blk, total, n_real)
+        s = torch.where(valid[None, :], raw / scale + qsum[:, None],
+                        torch.full_like(raw, NEG_INF))
+        vals, pos = _topk2(s, min(top_k, s.shape[1]))
+        gids = row_perm[src[pos].clamp(0, row_perm.shape[0] - 1)]
+    _count_scored(valid, q_raw.shape[0])
     return vals, gids
 
 
@@ -416,26 +453,31 @@ def packed_pq_scan(q_raw, q_rot, centroids, list_offsets, codes, row_perm,
     nlist_valid: as in ``packed_union_scan``.
     Returns (vals [B, K] f32, gids [B, K] int32)."""
     nlist = centroids.shape[0]
-    pad_blk = codes.shape[0] // RB - 1
-    blk, total = block_table(probe(q_raw, centroids, nprobe, nlist_valid),
-                             list_offsets, nlist=nlist, cap=cap,
-                             pad_blk=pad_blk, budget=budget)
-    lut = pq_lut(pq_books, q_rot).to(torch.bfloat16).contiguous()
-    raw = pq_pack_score(lut, codes, blk)
-    src, valid = _valid_rows(blk, total, n_real)
-    s = raw
-    if pq_residual:
-        # each row's OWN list: edge rows of a boundary block belong to the
-        # neighbouring list, whose centroid is their residual base
-        cs32 = q_raw @ centroids.T
-        rlist = (torch.searchsorted(list_offsets, src, right=True) - 1) \
-            .clamp(0, nlist - 1)
-        s = s + cs32[:, rlist]
-    s = torch.where(valid[None, :], s, torch.full_like(s, NEG_INF))
-    vals, pos = _topk2(s, min(scan_k, s.shape[1]))
-    gids = row_perm[src[pos].clamp(0, row_perm.shape[0] - 1)]
+    blk, total = _probe_table(q_raw, centroids, list_offsets, nlist_valid,
+                              nprobe=nprobe, cap=cap,
+                              pad_blk=codes.shape[0] // RB - 1,
+                              budget=budget)
+    with profiling.span("index.ivf.scan"):
+        lut = pq_lut(pq_books, q_rot).to(torch.bfloat16).contiguous()
+        raw = pq_pack_score(lut, codes, blk)
+    with profiling.span("index.ivf.select"):
+        src, valid = _valid_rows(blk, total, n_real)
+        s = raw
+        if pq_residual:
+            # each row's OWN list: edge rows of a boundary block belong to
+            # the neighbouring list, whose centroid is their residual base
+            cs32 = q_raw @ centroids.T
+            rlist = (torch.searchsorted(list_offsets, src, right=True) - 1) \
+                .clamp(0, nlist - 1)
+            s = s + cs32[:, rlist]
+        s = torch.where(valid[None, :], s, torch.full_like(s, NEG_INF))
+        vals, pos = _topk2(s, min(scan_k, s.shape[1]))
+        gids = row_perm[src[pos].clamp(0, row_perm.shape[0] - 1)]
+    _count_scored(valid, q_raw.shape[0])
     if refine_codes is not None:
-        return refine_int8(q_raw, vals, gids, refine_codes, offset, scale,
-                           top_k)
+        profiling.count("index.ivf.candidates_refined", gids.numel())
+        with profiling.span("index.ivf.refine"):
+            return refine_int8(q_raw, vals, gids, refine_codes, offset,
+                               scale, top_k)
     k = min(top_k, vals.shape[1])
     return vals[:, :k], gids[:, :k]

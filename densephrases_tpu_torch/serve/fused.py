@@ -10,6 +10,10 @@ point: it waits for that copy, then assembles on the host. ``search_pipelined``
 keeps ``depth`` batches in flight, so host tokenization and assembly of one
 batch overlap the device work of the next.
 
+Each batch is one request of the tracer (``utils/profiling.py``): ``submit``
+opens its ``serve.request`` span unless one is open, and the handle carries
+the request id to ``collect``, so pipelined batches keep their spans apart.
+
 It serves a single-device int8 ``FlatIndex`` only and refuses any other
 index, as the reference does (an IVF index goes through
 ``DensePhrases.search``).
@@ -23,6 +27,7 @@ import torch
 
 from densephrases_tpu_torch.index.flat import FlatIndex
 from densephrases_tpu_torch.index.search import _unpack
+from densephrases_tpu_torch.utils import profiling
 
 
 class FusedServer:
@@ -46,53 +51,65 @@ class FusedServer:
                return_sent: bool = False, truecase: bool = True):
         """Tokenize + enqueue the device path without blocking; pass the
         returned handle to ``collect``."""
-        model = self.model
-        # the truecasing of DensePhrases.search: the fused and modular paths
-        # see the same query text (ref: serve/fused.py:87-93)
-        if truecase and model.truecase is not None:
-            queries = [
-                q if q != q.lower() else model.truecase.get_true_case(q)
-                for q in queries
-            ]
-        query = model.query2vec(queries)
-        hits = self.mips.search_dense(query, top_k=top_k, chunk=self.chunk)
-        buf, layout = self.mips.rescore(query, *hits,
-                                        max_answer_length=max_answer_length)
-        done = None
-        if buf.is_cuda:
-            # enqueue this batch's ONE device→host copy now, behind its own
-            # work only: a copy issued in collect() would queue behind the
-            # batches submitted since, and wait for them too
-            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-            host.copy_(buf, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            buf = host
-        return {"buf": buf, "done": done, "layout": layout, "queries": queries,
-                "top_k": top_k, "aggregate": aggregate,
-                "agg_strat": agg_strat, "return_sent": return_sent}
+        with profiling.request():
+            model = self.model
+            # the truecasing of DensePhrases.search: the fused and modular
+            # paths see the same query text (ref: serve/fused.py:87-93)
+            if truecase and model.truecase is not None:
+                queries = [
+                    q if q != q.lower() else model.truecase.get_true_case(q)
+                    for q in queries
+                ]
+            query = model.query2vec(queries)
+            hits = self.mips.search_dense(query, top_k=top_k,
+                                          chunk=self.chunk)
+            buf, layout = self.mips.rescore(
+                query, *hits, max_answer_length=max_answer_length)
+            done = None
+            if buf.is_cuda:
+                # enqueue this batch's ONE device→host copy now, behind its
+                # own work only: a copy issued in collect() would queue
+                # behind the batches submitted since, and wait for them too
+                with profiling.span("serve.copy"):
+                    host = torch.empty(buf.shape, dtype=buf.dtype,
+                                       pin_memory=True)
+                    host.copy_(buf, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                profiling.count("serve.d2h_bytes",
+                                buf.numel() * buf.element_size())
+                buf = host
+            return {"buf": buf, "done": done, "layout": layout,
+                    "queries": queries, "top_k": top_k, "aggregate": aggregate,
+                    "agg_strat": agg_strat, "return_sent": return_sent,
+                    "request": profiling.current_request()}
 
     def collect(self, handle):
         """Wait for a ``submit`` handle's copy and assemble result dicts."""
-        if handle["done"] is not None:
-            handle["done"].synchronize()  # the only sync point
-        res = _unpack(handle["buf"].numpy(), handle["layout"])
-        s_gids, e_gids = res.pop("s_gids"), res.pop("e_gids")
-        outs = self.mips._assemble(res, s_gids, e_gids,
-                                   return_sent=handle["return_sent"])
-        if handle["aggregate"]:
-            outs = [self.mips.aggregate_results(
-                        r, handle["top_k"], q, handle["agg_strat"])
-                    for r, q in zip(outs, handle["queries"])]
-        return outs
+        with profiling.request(handle["request"]):
+            with profiling.span("serve.wait"):
+                if handle["done"] is not None:
+                    handle["done"].synchronize()  # the only sync point
+            with profiling.span("index.assemble"):
+                res = _unpack(handle["buf"].numpy(), handle["layout"])
+                s_gids, e_gids = res.pop("s_gids"), res.pop("e_gids")
+                outs = self.mips._assemble(res, s_gids, e_gids,
+                                           return_sent=handle["return_sent"])
+            if handle["aggregate"]:
+                with profiling.span("index.aggregate"):
+                    outs = [self.mips.aggregate_results(
+                                r, handle["top_k"], q, handle["agg_strat"])
+                            for r, q in zip(outs, handle["queries"])]
+            return outs
 
     def search(self, queries, top_k: int = 10, max_answer_length: int = 10,
                aggregate: bool = True, agg_strat: str = "opt1",
                return_sent: bool = False, truecase: bool = True):
-        return self.collect(self.submit(
-            queries, top_k=top_k, max_answer_length=max_answer_length,
-            aggregate=aggregate, agg_strat=agg_strat,
-            return_sent=return_sent, truecase=truecase))
+        with profiling.request():
+            return self.collect(self.submit(
+                queries, top_k=top_k, max_answer_length=max_answer_length,
+                aggregate=aggregate, agg_strat=agg_strat,
+                return_sent=return_sent, truecase=truecase))
 
     def search_pipelined(self, query_batches, depth: int = 2, **kwargs):
         """Serve a stream of query batches with ``depth`` batches in flight
