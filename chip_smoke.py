@@ -19,7 +19,11 @@ written kernel on that path against its plain PyTorch version:
                  here only, never called by the port); for C the product
                  alone on the gathered rows as a yardstick, and the whole
                  SQ8 and OPQ96-like scans around C and D; then C and D at
-                 ragged shapes (``IVF_EDGE_*``)
+                 ragged shapes (``IVF_EDGE_*``); then E (the flat int8 scan
+                 with its per-tile top-k) and its merge against the chunked
+                 loop at the flat serve shape (``FLAT_*``: 1M x 768, 128
+                 query rows, k 10), one launch a scan, with bf16
+                 ``torch.matmul`` and ``torch.topk`` as its yardstick
   3. dump        ``dump_phrases`` of a seeded synthetic corpus into a store
   4. serve       ``DensePhrases.search`` for all four units, the fused server
                  over 4 batches of 64 queries, the brute-force span oracle,
@@ -124,8 +128,11 @@ its end, leaving out the in-process runs its served answers are compared
 with (the ``run_demo`` subprocesses are not counted); A-D's from the start
 of phase 12 to the end of 12d, and again from 12e to its end, each tool's
 own part checked; A's from the first warm-up batch of 13a to its last
-window; phases 6-13 must equal the counts their paths imply. A kernel of
-a path that never launched fails the run.
+window; phases 6-13 must equal the counts their paths imply. Kernel E's
+is zeroed right before phase 4 and read after its main-path work, and
+counted over each of phases 5, 7, 8 and 10 (in this process, and in
+every rank of 10b and 10c) and over 13a's benchmark; each must be
+positive. A kernel of a path that never launched fails the run.
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, when there is no CUDA device. The second-last
 lines are a JSON object of per-kernel results and the card's
@@ -237,6 +244,12 @@ IVF_EDGE_BATCHES = (1, 37, 130)
 IVF_EDGE_C = ((64, False), (64, True), (68, False), (72, True))
 IVF_EDGE_D = ((8, 256), (24, 256), (12, 16))
 IVF_EDGE_BLOCKS, IVF_EDGE_REAL, IVF_EDGE_BUDGET = 96, 37, 64
+# kernel E (the flat int8 scan with its per-tile top-k) and its merge
+# against the plain twin, the chunked loop, at the flat serve path's shape:
+# the index's 1M rows padded to whole 4,096-row chunks, 768 dims, the start
+# and end query rows of a batch of 64 stacked, k 10
+FLAT_ROWS, FLAT_VALID, FLAT_DIM = 1003520, 1_000_000, 768
+FLAT_BATCH, FLAT_K = 2 * QUERY_BATCH, 10
 # phase 5: nlist before balancing, and the nprobe of the recall check
 IVF_CLUSTERS, SERVE_NPROBE = 128, 16
 # full-probe IVF-SQ8 vs flat top-1 span: both score bf16(q) . code in fp32
@@ -729,6 +742,37 @@ def phase_ivf_kernels():
     del refine
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_flat_scan():
+    """Kernel E and its merge (``index/flat.py:_scan_topk``, the route the
+    flat serve path takes) against the chunked loop (``_chunked_topk``) on
+    the same CUDA tensors, through ``tools/bench_flat_scan.measure``: one E
+    launch a scan, every score within the tool's ``tolerance``, and the
+    same ids (as sets) for every query whose twin's k-th and (k+1)-th
+    scores lie further apart than it. Times E alone (``ms``), the route,
+    the loop and a library yardstick that the port never calls (bf16
+    ``torch.matmul`` of all codes, then ``torch.topk``)."""
+    from densephrases_tpu_torch.tools.bench_flat_scan import measure
+
+    got = measure(FLAT_ROWS, FLAT_DIM, FLAT_BATCH, FLAT_K, SEED,
+                  n_valid=FLAT_VALID)
+    keys = ("tiles", "launches_a_scan", "within_tolerance", "clear_share",
+            "ids_equal_where_clear", "ids_equal_share", "valid_ids",
+            "route_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    row = {"at": f"B={FLAT_BATCH} D={FLAT_DIM} k={FLAT_K}, {FLAT_ROWS} "
+                 f"int8 rows ({FLAT_VALID} valid)",
+           "max_abs_err": got["score_max_abs_diff"],
+           "tol": got["tolerance_max"], "ms": got["kernel_ms"],
+           **{k: got[k] for k in keys},
+           "share_of_bound": got["bound_ms"] / got["kernel_ms"]}
+    log("2 kernels", kernel="flat_scan_topk", **row)
+    torch.cuda.empty_cache()
+    if not (row["launches_a_scan"] == 1 and row["within_tolerance"]
+            and row["clear_share"] > 0.5 and row["ids_equal_where_clear"]
+            and row["valid_ids"]):
+        raise AssertionError(f"flat_scan_topk disagrees with plain: {row}")
+    return row
 
 
 def phase_ivf_edges():
@@ -2221,6 +2265,7 @@ def scale_out_rank(rank, world, task, tmp, device):
 
     from densephrases_tpu_torch.models.attention import (
         ATTENTION_BWD, ATTENTION_FWD)
+    from densephrases_tpu_torch.ops.flat_scan import FLAT_SCAN_TOPK
     from densephrases_tpu_torch.ops.ivf_pack import (
         IVF_PACK_SCORE, PQ_PACK_SCORE)
     from densephrases_tpu_torch.parallel.multihost import init_multihost
@@ -2235,11 +2280,12 @@ def scale_out_rank(rank, world, task, tmp, device):
     kernels = {"A": ATTENTION_FWD, "B": ATTENTION_BWD, "C": IVF_PACK_SCORE,
                "D": PQ_PACK_SCORE}
     try:
-        for k in kernels.values():
+        for k in (*kernels.values(), FLAT_SCAN_TOPK):
             k.launches = 0
         out = {"serve": so_serve, "train": so_train}[task](
             rank, world, tmp, device, kernels)
         out["launches"] = {k: v.launches for k, v in kernels.items()}
+        out["e_launches"] = FLAT_SCAN_TOPK.launches  # the per-rank scans
         out["foreign"] = sorted(m for m in sys.modules
                                 if m.split(".")[0] in ("jax",
                                                        "densephrases_tpu"))
@@ -2439,9 +2485,14 @@ def phase_scale_out(tmp, store, model, config, docs, rng):
         del subs, host
         torch.cuda.empty_cache()
     serve_launches = {k: sum(o["launches"][k] for o in outs) for k in "ABCD"}
+    serve_launches["E"] = sum(o["e_launches"] for o in outs)
     log("10 scale_out", part="b", launches_per_rank=[o["launches"]
                                                      for o in outs],
-        expected_per_rank=[o["want"] for o in outs])
+        expected_per_rank=[o["want"] for o in outs],
+        e_launches_per_rank=[o["e_launches"] for o in outs])
+    if DEVICE == "cuda" and min(o["e_launches"] for o in outs) <= 0:
+        raise AssertionError("phase 10b: a rank's mesh FlatIndex scan never "
+                             "launched kernel E")
 
     # c. MIPS and DP training over gloo ranks on the card
     questions = [" ".join(rng.choice(docs[0]["paragraphs"][0].split(" "), 6))
@@ -2529,9 +2580,11 @@ def phase_scale_out(tmp, store, model, config, docs, rng):
         raise AssertionError("phase 10c: train_rc.main over the ranks "
                              f"went wrong: {outs[0]['driver']} {rows}")
     train_launches = {k: sum(o["launches"][k] for o in outs) for k in "ABCD"}
+    train_launches["E"] = sum(o["e_launches"] for o in outs)
     log("10 scale_out", part="c", launches_per_rank=[o["launches"]
                                                      for o in outs],
-        expected_per_rank=[o["want"] for o in outs])
+        expected_per_rank=[o["want"] for o in outs],
+        e_launches_per_rank=[o["e_launches"] for o in outs])
 
     # d. the parallel dump against phase 7's single dump
     offline = os.path.join(tmp, "offline")
@@ -2558,6 +2611,8 @@ def phase_scale_out(tmp, store, model, config, docs, rng):
     log("10 scale_out", **{f"{k.lower()}_launches": v
                            for k, v in counts.items()},
         mesh_work="a's mesh work in this process and every rank's task")
+    # kernel E's launches in the ranks (this process's: counted by main)
+    counts["E"] = serve_launches["E"] + train_launches["E"]
     return counts
 
 
@@ -3530,11 +3585,12 @@ def phase_bench(tmp, smi):
        batch 64, nprobe 16 equal an exact top-k over the same bf16 scores
        with ties to the lower id.
 
-    Returns {"A": kernel A's launches in a}."""
+    Returns {"A": kernel A's launches in a, "E": kernel E's}."""
     from densephrases_tpu_torch import bench
     from densephrases_tpu_torch.index.store import PhraseStore
     from densephrases_tpu_torch.models.attention import ATTENTION_FWD
     from densephrases_tpu_torch.models.bert import BertConfig
+    from densephrases_tpu_torch.ops.flat_scan import FLAT_SCAN_TOPK
     from densephrases_tpu_torch.ops.ivf_pack import probe
     from densephrases_tpu_torch.ops.kmeans import _bf16
     from densephrases_tpu_torch.tools import bench_ivf_scale
@@ -3545,18 +3601,23 @@ def phase_bench(tmp, smi):
 
     # ---- a. the serve benchmark (A from zero: warm-up to the last window)
     ATTENTION_FWD.launches = 0
+    FLAT_SCAN_TOPK.launches = 0
     res = bench.main(["--vocab_kind", "whole_word", "--store_dir", root],
                      device=DEVICE)
     torch.cuda.synchronize()
     launches = ATTENTION_FWD.launches
+    e_launches = FLAT_SCAN_TOPK.launches
     config = BertConfig()
     want_a = 2 * config.num_hidden_layers * bench.towered_batches()
     keys, stage_keys = bench_reference_keys()
     log("13 bench", part="a", value=res["value"], mode=res["mode"],
         vs_baseline=res["vs_baseline"], a_launches=launches,
-        a_expected=want_a, seconds=round(time.perf_counter() - t_phase, 3))
+        a_expected=want_a, e_launches=e_launches,
+        seconds=round(time.perf_counter() - t_phase, 3))
     if launches != want_a:
         raise AssertionError(f"13a: A launched {launches} != {want_a}")
+    if e_launches <= 0:
+        raise AssertionError("13a: the fused flat scan never launched E")
     if set(res) != keys or set(res["stages_ms"]) != stage_keys - {
             "dispatch_floor"}:
         raise AssertionError(f"13a: keys {sorted(res)} / "
@@ -3571,7 +3632,7 @@ def phase_bench(tmp, smi):
         raise AssertionError(f"13a: not positive {bad} or windows "
                              f"{res['windows_s']}")
 
-    with uncounted(ATTENTION_FWD):
+    with uncounted(ATTENTION_FWD, FLAT_SCAN_TOPK):
         store = PhraseStore.load(os.path.join(root, "store"))
         if (store.num_docs, store.n_vecs) != (
                 bench.N_DOCS, bench.N_DOCS * bench.VECS_PER_DOC):
@@ -3656,7 +3717,7 @@ def phase_bench(tmp, smi):
     shutil.rmtree(work)
     log("13 bench", seconds=round(time.perf_counter() - t_phase, 3),
         card=repr(smi))
-    return {"A": launches}
+    return {"A": launches, "E": e_launches}
 
 
 def main():
@@ -3678,6 +3739,7 @@ def main():
     from densephrases_tpu_torch.model import DensePhrases
     from densephrases_tpu_torch.models.attention import (
         ATTENTION_BWD, ATTENTION_FWD)
+    from densephrases_tpu_torch.ops.flat_scan import FLAT_SCAN_TOPK
     from densephrases_tpu_torch.ops.ivf_pack import (
         IVF_PACK_SCORE, PQ_PACK_SCORE)
     from densephrases_tpu_torch.models.bert import BertConfig
@@ -3696,7 +3758,8 @@ def main():
     kernels = {"attention_fwd": ATTENTION_FWD,
                "attention_bwd": ATTENTION_BWD,
                "ivf_pack_score": IVF_PACK_SCORE,
-               "pq_pack_score": PQ_PACK_SCORE}
+               "pq_pack_score": PQ_PACK_SCORE,
+               "flat_scan_topk": FLAT_SCAN_TOPK}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.function(), kernels.values()))
@@ -3716,6 +3779,18 @@ def main():
     bwd_rows = phase_attention_bwd()
     ivf_rows = phase_ivf_kernels()
     ivf_edge_err = phase_ivf_edges()
+    flat_row = phase_flat_scan()
+
+    def counted_e(phase, fn, *args):
+        """fn's result and kernel E's launches over it, which must be
+        positive: the phase's flat int8 scans on the card take E."""
+        FLAT_SCAN_TOPK.launches = 0
+        out = fn(*args)
+        n = FLAT_SCAN_TOPK.launches
+        log(phase, e_launches=n)
+        if n <= 0:
+            raise AssertionError(f"phase {phase}: kernel E never launched")
+        return out, n
 
     # ---- 3. dump (main path starts: launch counters from zero)
     rng = np.random.default_rng(SEED)
@@ -3747,7 +3822,8 @@ def main():
             or float(store.vecs.std()) < 1.0:
         raise AssertionError("dumped vectors are degenerate")
 
-    # ---- 4. serve
+    # ---- 4. serve (E's launch counter from zero)
+    FLAT_SCAN_TOPK.launches = 0
     mips = MIPS(store, device="cuda")
     model = DensePhrases(params, config, tok, mips, serve_dtype="bf16",
                          max_query_length=MAX_QUERY_LENGTH)
@@ -3785,9 +3861,12 @@ def main():
         verdicts.append(check_top1(store, q, top))
     log("4 serve", oracle="pass", verdicts=",".join(verdicts))
     serve_launches = ATTENTION_FWD.launches - dump_launches
-    log("4 serve", attention_launches=serve_launches)
+    serve_e = FLAT_SCAN_TOPK.launches
+    log("4 serve", attention_launches=serve_launches, e_launches=serve_e)
     if serve_launches <= 0:
         raise AssertionError("serving never launched attention_fwd")
+    if serve_e <= 0:
+        raise AssertionError("serving never launched flat_scan_topk")
     main_path_launches = ATTENTION_FWD.launches
 
     # ---- comparisons with the plain version (launches here do not count)
@@ -3817,23 +3896,26 @@ def main():
         raise AssertionError("serve: kernel and plain top-1 scores disagree")
 
     # ---- 5. ivf (main path: C and D launch counters from zero)
-    ivf_launches = phase_ivf(store, params, config, tok, model, queries, rng)
+    ivf_launches, ivf_e = counted_e("5 ivf", phase_ivf, store, params,
+                                    config, tok, model, queries, rng)
 
     # ---- 6. train (main path: A and B launch counters from zero)
     train_launches = phase_train(tmp, params, config, tok, docs, mips, rng)
 
     # ---- 7. offline drivers (main path: A, C and D counters from zero)
-    offline_launches = phase_offline(tmp, params, config, tok, docs, store,
-                                     model, queries, rng, stats["windows"])
+    offline_launches, offline_e = counted_e(
+        "7 offline", phase_offline, tmp, params, config, tok, docs, store,
+        model, queries, rng, stats["windows"])
 
     # ---- 8. scale (g's path: A and C counters from zero)
-    scale_launches = phase_scale(tmp, config)
+    scale_launches, scale_e = counted_e("8 scale", phase_scale, tmp, config)
 
     # ---- 9. trainers (A, B and D counters from zero before each part)
     trainer_launches = phase_trainers(tmp, config, tok, docs, smi)
 
     # ---- 10. scale-out (A-D counted in this process and in every rank)
-    scale_out_launches = phase_scale_out(tmp, store, model, config, docs, rng)
+    scale_out_launches, scale_out_e = counted_e(
+        "10 scale_out", phase_scale_out, tmp, store, model, config, docs, rng)
 
     # ---- 11. demo (A, C and D counters from zero; served requests only)
     demo_launches = phase_demo(tmp, config, docs, rng, smi)
@@ -3930,7 +4012,23 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in ivf_rows["D"]),
         **timing(ivf_rows["D"][0], *ivf_rows["D"]),
         "edge_rel_err": ivf_edge_err["D"],
-        "at": ivf_rows["D"][0]["at"]}]}), flush=True)
+        "at": ivf_rows["D"][0]["at"]}, {
+        "name": "flat_scan_topk", "route": "cuda",
+        "source": "densephrases_tpu_torch/csrc/flat_scan_topk.cu",
+        "replaces": "none (the reference's flat scan is XLA: "
+                    "densephrases_tpu/index/flat.py:103-140)",
+        "launches": (serve_e + ivf_e + offline_e + scale_e + scale_out_e
+                     + scale_out_launches["E"] + bench_launches["E"]),
+        "launches_by_path": {"serve": serve_e, "ivf": ivf_e,
+                             "offline": offline_e, "scale": scale_e,
+                             "scale_out": scale_out_e
+                             + scale_out_launches["E"],
+                             "bench": bench_launches["E"]},
+        "max_abs_err": flat_row["max_abs_err"],
+        **timing(flat_row, flat_row),
+        "route_ms": flat_row["route_ms"],
+        "ids_equal_share": flat_row["ids_equal_share"],
+        "at": flat_row["at"]}]}), flush=True)
     tmp_dir.cleanup()
     log("done", total_s=round(time.perf_counter() - t_start, 1))
     print(nvidia_smi(), flush=True)

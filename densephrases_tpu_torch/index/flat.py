@@ -11,7 +11,15 @@ The counterpart of the single-device paths of
   queries, as in the reference (flat.py:120-121). The product of bf16
   queries and int8 codes is exact in fp32 and accumulates in fp32, the
   role of the reference's ``preferred_element_type=f32``;
-- a loop over corpus chunks keeps a per-chunk top-k, then one exact merge;
+- two routes take the scan (``_scan_topk``, chosen by ``kernel_route``
+  from the device, k and the row width, with no option to pick one): int8
+  codes on a CUDA device with k at most ``FLAT_K_MAX`` go through
+  kernel E (``ops/flat_scan.flat_scan_topk``, ``csrc/flat_scan_topk.cu``),
+  one launch that keeps each tile's exact top-k, then one exact merge of
+  the tiles' lists; everything else (CPU tensors, int4 codes, larger k)
+  takes the loop over corpus chunks, a per-chunk exact top-k and one exact
+  merge (``_chunked_topk``, the kernel's plain twin). Both keep the lower
+  row on ties. The loop alone reads ``chunk``;
 - ``quant="int4"`` re-quantizes the vectors to the int4 contract
   (``ops/quant.py``) on the device, slice by slice, and keeps two nibbles a
   byte, the high nibble holding the first half of the dims: half the
@@ -45,7 +53,8 @@ from densephrases_tpu_torch.ops.quant import (
     float_to_int4,
     int8_to_float,
 )
-from densephrases_tpu_torch.ops.topk import topk_merge
+from densephrases_tpu_torch.ops.flat_scan import FLAT_K_MAX, flat_scan_topk
+from densephrases_tpu_torch.ops.topk import topk, topk_merge
 from densephrases_tpu_torch.parallel import all_gather
 from densephrases_tpu_torch.utils import profiling
 from densephrases_tpu_torch.utils.device import resolve_device
@@ -64,6 +73,7 @@ def _chunked_topk(queries, codes, n_valid: int, offset: float, scale: float,
     fp32 codes [chunk, D] that the bf16-rounded queries multiply; exact
     top-k per chunk, exact merge. A chunk that does not divide the row
     count leaves a short last chunk, so every row is scored once."""
+    profiling.count("index.flat.chunks", -(-codes.shape[0] // chunk))
     qsum = queries.sum(-1) * offset  # [B] rank-1 dequant correction
     qbf = queries.to(torch.bfloat16).to(torch.float32)
     col = torch.arange(chunk, device=codes.device, dtype=torch.int32)
@@ -81,11 +91,31 @@ def _chunked_topk(queries, codes, n_valid: int, offset: float, scale: float,
     return v, torch.gather(all_ids, 1, pos)
 
 
+def kernel_route(device, top_k: int, dim: int) -> bool:
+    """Whether an int8 scan runs kernel E: a CUDA device, k at most E's
+    limit, rows of whole 8-byte words. Otherwise the chunked loop. (int4
+    codes take ``_scan_topk_int4``, which is always the loop.)"""
+    return (torch.device(device).type == "cuda"
+            and 1 <= top_k <= FLAT_K_MAX and dim % 8 == 0)
+
+
 def _scan_topk(queries, codes, n_valid: int, offset: float, scale: float,
                *, top_k: int, chunk: int):
     """MIPS over a padded int8 corpus. queries: [B, D] fp32. codes: [R, D]
-    int8 with R % chunk == 0; rows >= n_valid are padding and score
-    NEG_INF. Returns (scores [B, top_k] fp32, ids [B, top_k] int32)."""
+    int8; rows >= n_valid are padding and score NEG_INF. Returns (scores
+    [B, top_k] fp32, ids [B, top_k] int32). Kernel E where
+    ``kernel_route`` says so, else the chunked loop (``chunk`` rows a
+    chunk)."""
+    if kernel_route(codes.device, top_k, codes.shape[1]):
+        q = queries.contiguous()
+        if q.data_ptr() % 16:  # a view off the kernel's 16-byte loads
+            q = q.clone()
+        # the loop's Σq; E multiplies by offset as the loop's * rounds
+        vals, ids, tiles = flat_scan_topk(q, codes, q.sum(-1), n_valid,
+                                          offset, scale, top_k)
+        profiling.count("index.flat.kernel_tiles", tiles)
+        v, pos = topk(vals, top_k)
+        return v, torch.gather(ids, 1, pos)
     return _chunked_topk(queries, codes, n_valid, offset, scale,
                          lambda c: c.to(torch.float32), top_k=top_k,
                          chunk=chunk)
@@ -226,15 +256,15 @@ class FlatIndex:
         """queries: [B, D] → (scores [B, K] fp32, ids [B, K] int32).
         nprobe is accepted and ignored, as in the reference, so ``MIPS``
         passes it to either index type. as_numpy=False keeps the results
-        on the device. chunk: the rows of each scanned chunk (None: the
-        index's); each chunk's top-k is exact, so the ids do not depend on
-        it. With a mesh every rank passes the same queries and gets the
-        same merged result."""
+        on the device. chunk: the rows of each chunk of the chunked loop
+        (None: the index's), which scans CPU tensors, int4 codes and k past
+        kernel E's limit; kernel E does not read it. Each chunk's top-k is
+        exact, so the ids do not depend on it. With a mesh every rank
+        passes the same queries and gets the same merged result."""
         queries = torch.as_tensor(queries, dtype=torch.float32,
                                   device=self.device)
         k = min(top_k, self.n_total)
         chunk = chunk or self.chunk
-        profiling.count("index.flat.chunks", -(-self.codes.shape[0] // chunk))
         with profiling.span("index.flat.scan"):
             if self.mesh is not None:
                 vals, ids = self._mesh_search(queries, k, chunk)

@@ -35,8 +35,10 @@ class FusedServer:
     FlatIndex. Drop-in for ``.search`` with the phrase unit."""
 
     def __init__(self, model, chunk: Optional[int] = None):
-        """chunk: the rows of the stage-1 scan's chunks (None: the index's).
-        Each chunk's top-k is exact, so the ids do not depend on it."""
+        """chunk: the rows of the stage-1 scan's chunks (None: the index's),
+        read only where the scan takes the chunked loop (CPU tensors, k
+        past kernel E's limit; ``index/flat.py:kernel_route``). Each
+        chunk's top-k is exact, so the ids do not depend on it."""
         index = model.mips.index
         if not (isinstance(index, FlatIndex) and index.mesh is None
                 and index.quant == "int8"):
