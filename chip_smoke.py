@@ -114,6 +114,18 @@ written kernel on that path against its plain PyTorch version:
                  CPU baseline's ids against the device flat scan's; b.
                  ``bench_ivf_scale --coarse_only`` at 2^20 requested lists
                  over a cut corpus, the probe against an exact top-k
+  14. modernbert ModernBERT-large towers (``models/modernbert.py``): A's
+                 banded instance (``csrc/attention_band.cu``) against its
+                 plain twin at the benchmark cell's shape (8 x 16 x 8,192 x
+                 64, half-width 64) and at edge shapes, timed beside the
+                 twin, ``scaled_dot_product_attention`` with the same band
+                 as an additive mask (the yardstick) and its bound; A's
+                 global path at the same shape, timed; then one
+                 ``FusedServer.search`` batch of 8 documents of 2,001-8,000
+                 words through two ModernBERT-large towers (seeded) over a
+                 flat int8 index 1,024 wide, with A's global and banded
+                 launches counted (20 and 36), and the towers through the
+                 kernels against the plain path at L 1,024
 
 Kernel A's launch counter is zeroed right before phase 3 and read after
 phase 4's main-path work; kernels C and D's are zeroed right before phase 5
@@ -350,6 +362,23 @@ DEMO_CLI_TIMEOUT = 300
 DEMO_META_DOCS = 16384
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# phase 14: the benchmark cell mbl-flat-sq8.doc-el8k-b8's attention shape
+# (batch 8, 16 heads, 8,192 tokens, head dim 64, band half-width 64); the
+# band at edge shapes (L < 2w + 1, L not a multiple of 64, w 0, a band
+# wider than the row, every head dim); one serve batch of MB_BATCH
+# documents of MB_WORDS words over MB_DOCS docs of 100 phrases 1,024 wide;
+# the kernel path against the plain one at MB_PLAIN_LEN tokens (the plain
+# full attention at 8,192 would hold 34 GB of fp32 scores a launch)
+MB_SHAPE, MB_WINDOW = (8, 16, 8192, 64), 64
+MB_EDGE_SHAPES = ((3, 2, 12, 16, 8), (2, 3, 130, 32, 8), (3, 2, 200, 64, 64),
+                  (2, 2, 65, 16, 0), (2, 1, 50, 128, 70),
+                  (1, 4, 1000, 64, 64))
+MB_BATCH, MB_WORDS, MB_DOCS, MB_PLAIN_LEN = 8, (2001, 8000), 2000, 1024
+# the ModernBERT towers through the kernels against the plain path, bf16:
+# A's fp32 scores against the twins' bf16 ones through 28 layers; the
+# [CLS] vectors' distance over their norm (the CPU tests read 3.8% at the
+# tiny size, and fp8 towers 50%)
+MB_TOWER_RTOL = 0.1
 
 
 def log(phase, **kv):
@@ -2264,7 +2293,7 @@ def scale_out_rank(rank, world, task, tmp, device):
     import torch.distributed as dist
 
     from densephrases_tpu_torch.models.attention import (
-        ATTENTION_BWD, ATTENTION_FWD)
+        ATTENTION_BAND, ATTENTION_BWD, ATTENTION_FWD)
     from densephrases_tpu_torch.ops.flat_scan import FLAT_SCAN_TOPK
     from densephrases_tpu_torch.ops.ivf_pack import (
         IVF_PACK_SCORE, PQ_PACK_SCORE)
@@ -3720,6 +3749,181 @@ def phase_bench(tmp, smi):
     return {"A": launches, "E": e_launches}
 
 
+def band_bias(mask, l, w, dtype):
+    """The band's mask as ``scaled_dot_product_attention`` takes it: the
+    padded keys' -1e9 and -inf off the band, [B, 1, L, L]."""
+    pos = torch.arange(l, device=mask.device)
+    off = (pos[:, None] - pos[None]).abs() > w
+    bias = ((1 - mask) * -1e9)[:, None, None, :].expand(-1, 1, l, -1).clone()
+    return bias.masked_fill(off, float("-inf")).to(dtype)
+
+
+def phase_modernbert(smi):
+    """Phase 14: A's banded instance, A's global path at the ModernBERT
+    cell's shape, and one serve batch of ModernBERT-large towers. Returns
+    {"band": the band's row, "global": A's row, "A", "band_launches", "E":
+    the serve batch's launches}."""
+    from densephrases_tpu_torch import bench
+    from densephrases_tpu_torch.index.search import MIPS
+    from densephrases_tpu_torch.model import DensePhrases
+    from densephrases_tpu_torch.models.attention import (
+        ATTENTION_BAND, ATTENTION_FWD, attention_cuda, attention_plain,
+        band_pairs)
+    from densephrases_tpu_torch.models.encoder import (
+        embed_query, init_encoder_params)
+    from densephrases_tpu_torch.models.modernbert import ModernBertConfig
+    from densephrases_tpu_torch.ops.flat_scan import FLAT_SCAN_TOPK
+    from densephrases_tpu_torch.serve.fused import FusedServer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    tol = KERNEL_TOL["bfloat16"]
+    # a. the band at its edge shapes, then at the cell's shape (timed)
+    edge_err = 0.0
+    for b, h, l, d, w in MB_EDGE_SHAPES:
+        q, k, v, mask = attention_inputs(b, h, l, d, torch.bfloat16, gen)
+        err = float((attention_cuda(q, k, v, mask, window=w).float()
+                     - attention_plain(q, k, v, mask, window=w).float())
+                    .abs().max())
+        log("14 modernbert", kernel="attention_band", edge=f"{b}x{h}x{l}x{d}",
+            window=w, max_abs_err=err, tol=tol)
+        if err > tol:
+            raise AssertionError(f"attention_band disagrees at {(b, h, l, d, w)}")
+        edge_err = max(edge_err, err)
+    b, h, l, d = MB_SHAPE
+    w = MB_WINDOW
+    q, k, v, mask = attention_inputs(b, h, l, d, torch.bfloat16, gen)
+    mask[0] = 1
+    out = attention_cuda(q, k, v, mask, window=w)
+    ref = attention_plain(q, k, v, mask, window=w)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    bias = band_bias(mask, l, w, torch.bfloat16)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=bias)
+    library_err = float((sdpa().float() - ref.float()).abs().max())
+    pairs = band_pairs(l, w)
+    bound_ms, bound_by = bound(4 * b * h * d * pairs,
+                               4 * b * h * l * d * 2 + 4 * b * l, "bfloat16")
+    ms = cuda_ms(lambda: attention_cuda(q, k, v, mask, window=w))
+    band = {"shape": "x".join(map(str, MB_SHAPE)), "window": w,
+            "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
+            "edge_max_abs_err": edge_err, "ms": ms,
+            "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, mask,
+                                                        window=w), iters=5),
+            "library_ms": cuda_ms(sdpa, iters=10), "library_err": library_err,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+    log("14 modernbert", kernel="attention_band", **band)
+    if err > tol:
+        raise AssertionError(f"attention_band disagrees with plain: {band}")
+    del bias, ref
+    # A's global path at the same shape, against its plain twin (which
+    # scores its query rows in blocks of PLAIN_SCORES_MAX) and SDPA
+    bias = sdpa_bias(mask, torch.bfloat16)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=bias)
+    gl_out = attention_cuda(q, k, v, mask)
+    gl_ref = attention_plain(q, k, v, mask)
+    err = float((gl_out.float() - gl_ref.float()).abs().max())
+    library_err = float((sdpa().float() - gl_ref.float()).abs().max())
+    del gl_ref
+    bound_ms, bound_by = attention_bound(MB_SHAPE, torch.bfloat16, 4, 4)
+    ms = cuda_ms(lambda: attention_cuda(q, k, v, mask), iters=10)
+    glob = {"shape": "x".join(map(str, MB_SHAPE)), "dtype": "bfloat16",
+            "max_abs_err": err, "tol": tol, "ms": ms,
+            "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, mask),
+                                iters=3, warmup=1),
+            "library_ms": cuda_ms(sdpa, iters=10),
+            "library_err": library_err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+    log("14 modernbert", kernel="attention_fwd", **glob)
+    if err > tol:
+        raise AssertionError(f"attention_fwd disagrees with plain: {glob}")
+    del q, k, v, mask, out, gl_out, bias
+    torch.cuda.empty_cache()
+
+    # b. one serve batch of ModernBERT-large towers through FusedServer
+    cfg = ModernBertConfig()
+    rng = np.random.default_rng(SEED)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mb_")
+    store = bench.build_store(os.path.join(tmp.name, "store"),
+                              n_docs=MB_DOCS, vecs_per_doc=100,
+                              d=cfg.hidden_size, seed=SEED)
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [
+        f"w{i}" for i in range(cfg.vocab_size - 5)]
+    from densephrases_tpu_torch.data.tokenization import WordPieceTokenizer
+    tok = WordPieceTokenizer({t: i for i, t in enumerate(vocab)})
+    params = init_encoder_params(cfg, torch.Generator().manual_seed(SEED),
+                                 device="cuda")
+    model = DensePhrases(params, cfg, tok, MIPS(store, device="cuda"),
+                         max_query_length=cfg.max_position_embeddings,
+                         serve_dtype="bf16")
+    del params
+    fused = FusedServer(model)
+    texts = [" ".join(f"w{j}" for j in rng.integers(
+        0, cfg.vocab_size - 5, int(n)))
+        for n in rng.integers(MB_WORDS[0], MB_WORDS[1] + 1, MB_BATCH)]
+    fused.search(texts, top_k=10)  # warm-up
+    torch.cuda.synchronize()
+    for kern in (ATTENTION_FWD, ATTENTION_BAND, FLAT_SCAN_TOPK):
+        kern.launches = 0
+    t0 = time.perf_counter()
+    outs = fused.search(texts, top_k=10)
+    batch_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {"A": ATTENTION_FWD.launches, "band": ATTENTION_BAND.launches,
+                "E": FLAT_SCAN_TOPK.launches}
+    n_glob = sum(cfg.is_global(i) for i in range(cfg.num_hidden_layers))
+    log("14 modernbert", serve_batch=MB_BATCH, batch_ms=round(batch_ms, 1),
+        global_launches=launches["A"], band_launches=launches["band"],
+        e_launches=launches["E"],
+        first_answer=repr(outs[0][0]["answer"][:40]) if outs[0] else None)
+    if (launches["A"] != 2 * n_glob
+            or launches["band"] != 2 * (cfg.num_hidden_layers - n_glob)
+            or launches["E"] != 1):
+        raise AssertionError(f"ModernBERT serve launches: {launches}")
+    if len(outs) != MB_BATCH or not all(
+            r and r[0]["answer"] == r[0]["context"][r[0]["start_pos"]:r[0]["end_pos"]]
+            for r in outs):
+        raise AssertionError("ModernBERT serve returned malformed results")
+    # c. the towers through the kernels against the plain path
+    ids = torch.as_tensor(rng.integers(5, cfg.vocab_size,
+                                       (MB_BATCH, MB_PLAIN_LEN)), device="cuda")
+    am = torch.ones_like(ids)
+    for i in range(MB_BATCH):
+        am[i, MB_PLAIN_LEN - 97 * i:] = 0
+    got = embed_query(model.params, ids, am)
+    want = embed_query(model.params, ids, am, attn_impl="plain")
+    rel = max(float((g.float() - w_.float()).norm(dim=-1).max()
+                    / w_.float().norm(dim=-1).min())
+              for g, w_ in zip(got, want))
+    log("14 modernbert", towers_kernel_vs_plain=rel, tol=MB_TOWER_RTOL,
+        at=f"B={MB_BATCH} L={MB_PLAIN_LEN}",
+        seconds=round(time.perf_counter() - t_phase, 1))
+    if rel > MB_TOWER_RTOL:
+        raise AssertionError("ModernBERT towers: kernel and plain disagree")
+    del model, fused, store
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"band": band, "global": glob, "A": launches["A"],
+            "band_launches": launches["band"], "E": launches["E"]}
+
+
+def band_kernel_row(mb):
+    """The JSON row of A's banded instance from phase 14's result."""
+    band = mb["band"]
+    return {"name": "attention_band", "route": "cuda",
+            "source": "densephrases_tpu_torch/csrc/attention_band.cu",
+            "replaces": "none (the JAX package has no windowed attention; "
+                        "kernel A's tiles restricted to a band)",
+            "launches": mb["band_launches"],
+            "max_abs_err": max(band["max_abs_err"], band["edge_max_abs_err"]),
+            **{k: band[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")},
+            "global_at_same_shape": mb["global"],
+            "at": "B=8 H=16 L=8192 D=64 w=64 bf16"}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
@@ -3738,7 +3942,7 @@ def main():
     from densephrases_tpu_torch.index.search import MIPS
     from densephrases_tpu_torch.model import DensePhrases
     from densephrases_tpu_torch.models.attention import (
-        ATTENTION_BWD, ATTENTION_FWD)
+        ATTENTION_BAND, ATTENTION_BWD, ATTENTION_FWD)
     from densephrases_tpu_torch.ops.flat_scan import FLAT_SCAN_TOPK
     from densephrases_tpu_torch.ops.ivf_pack import (
         IVF_PACK_SCORE, PQ_PACK_SCORE)
@@ -3756,6 +3960,7 @@ def main():
 
     # ---- 1. build: one nvcc per source, all started together
     kernels = {"attention_fwd": ATTENTION_FWD,
+               "attention_band": ATTENTION_BAND,
                "attention_bwd": ATTENTION_BWD,
                "ivf_pack_score": IVF_PACK_SCORE,
                "pq_pack_score": PQ_PACK_SCORE,
@@ -3927,6 +4132,10 @@ def main():
     # the benchmark's warm-up and windows)
     bench_launches = phase_bench(tmp, smi)
 
+    # ---- 14. ModernBERT towers: A's band and global path at the cell's
+    # shape, one serve batch (A, its band and E counted over that batch)
+    mb = phase_modernbert(smi)
+
     def timing(row, *rows):
         """The line's numbers for one kernel from its headline row; every
         row's numbers beside them."""
@@ -4028,7 +4237,7 @@ def main():
         **timing(flat_row, flat_row),
         "route_ms": flat_row["route_ms"],
         "ids_equal_share": flat_row["ids_equal_share"],
-        "at": flat_row["at"]}]}), flush=True)
+        "at": flat_row["at"]}, band_kernel_row(mb)]}), flush=True)
     tmp_dir.cleanup()
     log("done", total_s=round(time.perf_counter() - t_start, 1))
     print(nvidia_smi(), flush=True)

@@ -22,8 +22,8 @@ import torch
 from densephrases_tpu_torch.data.features import convert_questions_to_features
 from densephrases_tpu_torch.data.tokenization import WordPieceTokenizer
 from densephrases_tpu_torch.index.search import MIPS
-from densephrases_tpu_torch.models.bert import BertConfig
-from densephrases_tpu_torch.models.encoder import EncoderParams, embed_query
+from densephrases_tpu_torch.models.encoder import (EncoderParams, TowerConfig,
+                                                   embed_query)
 from densephrases_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
@@ -40,7 +40,7 @@ class DensePhrases:
         "document": "opt3",
     }
 
-    def __init__(self, params: EncoderParams, config: BertConfig,
+    def __init__(self, params: EncoderParams, config: TowerConfig,
                  tokenizer: WordPieceTokenizer, mips: MIPS,
                  max_query_length: int = 64, truecase=None,
                  attn_impl: str = "auto", serve_dtype: Optional[str] = None):

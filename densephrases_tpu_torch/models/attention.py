@@ -25,14 +25,28 @@ for CUDA tensors (through ``AttentionCuda`` when a gradient is needed, the
 forward kernel alone otherwise), the plain version under torch autograd for
 CPU tensors. There is no fallback: a CUDA tensor goes through the kernels
 or the call raises.
+
+Each function takes ``window``: None is full attention, as above; an int w
+restricts each query i to the keys j with |i - j| <= w (ModernBERT's local
+layers: w = local_attention / 2). On the card a window launches A's banded
+instance, ``csrc/attention_band.cu``, which streams only the key tiles that
+meet a block's band; ``attention_plain`` with a window is its twin. The band
+serves only: it has no logsumexp output and no backward, and a call that
+would need either raises.
+
+While tracing is on (``utils/profiling.py``), ``attention`` counts its
+launches and the query-key pairs it scores, by kind: ``towers.attn_*_global``
+and ``towers.attn_*_band``, from the shapes on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from densephrases_tpu_torch.utils import profiling
 from densephrases_tpu_torch.utils.cuda_build import CudaKernel
 
 NEG_INF = -1e9
@@ -48,16 +62,66 @@ ATTENTION_FWD = CudaKernel(
 ATTENTION_BWD = CudaKernel(
     "attention_bwd.cu", "dph_attention_bwd",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# (q, k, v, mask, out), (batch, heads, seq, head_dim, window), stream
+ATTENTION_BAND = CudaKernel(
+    "attention_band.cu", "dph_attention_band",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+BAND_BLOCK = 64  # query rows a block of the banded plain twin scores
+# the most scores the full plain twin holds at once (1 GiB in fp32): a
+# longer call (ModernBERT's 8,192 tokens on the CPU) scores its query rows
+# in blocks; every shorter call is one block
+PLAIN_SCORES_MAX = 1 << 28
 
 
-def attention_plain(q, k, v, mask):
-    """q, k, v: [B, H, L, D]; mask: [B, L] (1 = keep) → [B, H, L, D]."""
+def attention_plain(q, k, v, mask, window=None):
+    """q, k, v: [B, H, L, D]; mask: [B, L] (1 = keep) → [B, H, L, D].
+    With ``window`` w, each query i attends to the keys |i - j| <= w only:
+    blocks of ``BAND_BLOCK`` query rows score the keys their band meets,
+    with -inf off the band, at the rounding points of the full version."""
+    if window is not None:
+        return _band_plain(q, k, v, mask, window)
+    b, h, lq = q.shape[:3]
+    rows = max(PLAIN_SCORES_MAX // max(b * h * k.shape[2], 1), 1)
+    if lq > rows:
+        return torch.cat([attention_plain(q[:, :, i:i + rows], k, v, mask)
+                          for i in range(0, lq, rows)], 2)
     d = q.shape[-1]
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / (d ** 0.5)
     bias = (1.0 - mask[:, None, None, :].to(torch.float32)) * NEG_INF
     scores = scores.to(torch.float32) + bias
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def _band_plain(q, k, v, mask, window: int):
+    d, l = q.shape[-1], q.shape[2]
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    bias = (1.0 - mask[:, None, None, :].to(torch.float32)) * NEG_INF
+    pos = torch.arange(l, device=q.device)
+    out = torch.empty_like(q)
+    for i0 in range(0, l, BAND_BLOCK):
+        i1 = min(i0 + BAND_BLOCK, l)
+        j0, j1 = max(i0 - window, 0), min(i1 + window, l)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q[:, :, i0:i1],
+                              k[:, :, j0:j1]) / (d ** 0.5)
+        scores = scores.to(torch.float32) + bias[..., j0:j1]
+        off = (pos[i0:i1, None] - pos[None, j0:j1]).abs() > window
+        scores = scores.masked_fill(off, float("-inf"))
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        out[:, :, i0:i1] = torch.einsum("bhqk,bhkd->bhqd", probs,
+                                        v[:, :, j0:j1])
+    return out
+
+
+def band_pairs(l: int, window: Optional[int]) -> int:
+    """Query-key pairs a [.., L, ..] head scores: L² for full attention,
+    sum over i of |{j : |i - j| <= w}| with a window w."""
+    if window is None or window >= l - 1:
+        return l * l
+    w = window
+    # each row has 2w + 1 keys, less those past either end
+    return l * (2 * w + 1) - w * (w + 1)
 
 
 def attention_lse_plain(q, k, mask):
@@ -124,13 +188,19 @@ def _check_cuda_inputs(name, mask, *xs):
         raise ValueError(f"{name}: inputs and mask must be on one device")
 
 
-def attention_cuda(q, k, v, mask, return_lse: bool = False):
+def attention_cuda(q, k, v, mask, return_lse: bool = False, window=None):
     """The CUDA kernel. q, k, v: [B, H, L, D] contiguous CUDA tensors of one
     dtype (float32 or bfloat16), D in ``HEAD_DIMS``; mask: [B, L]. Returns
     out, or (out, lse) with ``return_lse`` (lse as ``attention_lse_plain``
-    gives it; otherwise the kernel writes none). Launches on the current
+    gives it; otherwise the kernel writes none). With ``window`` (bf16
+    only, no lse) it launches the banded instance. Launches on the current
     stream and does not synchronise."""
     _check_cuda_inputs("attention_cuda", mask, q, k, v)
+    if window is not None:
+        if return_lse:
+            raise ValueError("the banded attention has no logsumexp output "
+                             "(it serves only; there is no band backward)")
+        return _attention_band_cuda(q, k, v, mask, window)
     b, h, l, d = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, l), dtype=torch.float32, device=q.device)
@@ -145,6 +215,23 @@ def attention_cuda(q, k, v, mask, return_lse: bool = False):
                                  b, h, l, d, int(q.dtype == torch.bfloat16),
                                  stream)
     return (out, lse) if return_lse else out
+
+
+def _attention_band_cuda(q, k, v, mask, window: int):
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the banded attention takes bfloat16, got {q.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    b, h, l, d = q.shape
+    out = torch.empty_like(q)
+    if q.numel():
+        maskf = mask.to(torch.float32).contiguous()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            ATTENTION_BAND.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  maskf.data_ptr(), out.data_ptr(), b, h, l,
+                                  d, min(int(window), l), stream)
+    return out
 
 
 def attention_cuda_bwd(q, k, v, mask, g, out, lse):
@@ -206,19 +293,30 @@ AttentionCuda = attention_function(
     attention_cuda_bwd)
 
 
-def attention(q, k, v, mask, impl: str = "auto"):
+def attention(q, k, v, mask, impl: str = "auto", window=None):
     """Dispatch: 'auto' (the kernels for CUDA tensors, the plain version for
     CPU tensors) | 'cuda' | 'plain'. Both are differentiable: 'cuda' through
     ``AttentionCuda``, 'plain' through torch autograd. Where no gradient is
     asked for (grad mode off, or no input needs one), 'cuda' launches the
-    forward kernel alone, which then writes no logsumexp."""
+    forward kernel alone, which then writes no logsumexp. ``window``: None
+    for full attention, else the band's half-width; the band serves only,
+    so a call with a window that needs a gradient raises."""
     if impl == "auto":
         impl = "cuda" if q.is_cuda else "plain"
+    if impl not in ("cuda", "plain"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if window is not None and grad:
+        raise ValueError("the banded attention serves only: it has no "
+                         "backward")
+    if profiling.active():
+        kind = "global" if window is None else "band"
+        b, h, l = q.shape[:3]
+        profiling.count(f"towers.attn_launches_{kind}", 1)
+        profiling.count(f"towers.attn_pairs_{kind}",
+                        b * h * band_pairs(l, window))
     if impl == "cuda":
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
+        if grad:
             return AttentionCuda.apply(q, k, v, mask)
-        return attention_cuda(q, k, v, mask)
-    if impl == "plain":
-        return attention_plain(q, k, v, mask)
-    raise ValueError(f"unknown attention impl {impl!r}")
+        return attention_cuda(q, k, v, mask, window=window)
+    return attention_plain(q, k, v, mask, window=window)

@@ -5,7 +5,9 @@ The counterpart of ``densephrases_tpu/models/encoder.py``:
 - ``EncoderParams`` holds the three towers (``phrase``, ``query_start``,
   ``query_end``) and the 2-logit ``filter`` head, the reference's params
   dict as one ``nn.Module``; with a teacher it also holds the frozen
-  ``cross`` tower and its ``qa_outputs`` head;
+  ``cross`` tower and its ``qa_outputs`` head. The towers are BERT
+  (``BertConfig``) or, for serving, ModernBERT (``ModernBertConfig``,
+  ``models/modernbert.py``), which the JAX package does not have;
 - ``embed_phrase``: token-wise start = end = last hidden state of the
   phrase tower, plus the filter logits;
 - ``embed_query``: the [CLS] hidden state of each query tower. The
@@ -27,13 +29,15 @@ The counterpart of ``densephrases_tpu/models/encoder.py``:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from densephrases_tpu_torch.models.bert import BertConfig, BertModel, _param
+from densephrases_tpu_torch.models.modernbert import (ModernBertConfig,
+                                                      ModernBertModel)
 from densephrases_tpu_torch.parallel import all_gather_grad, rank_and_size
 from densephrases_tpu_torch.utils.device import resolve_device
 
@@ -55,16 +59,21 @@ class LinearHead(nn.Module):
         return x @ self.w.to(x.dtype) + self.b.to(x.dtype)
 
 
+TowerConfig = Union[BertConfig, ModernBertConfig]
+
+
 class EncoderParams(nn.Module):
-    def __init__(self, config: BertConfig, with_teacher: bool = False):
+    def __init__(self, config: TowerConfig, with_teacher: bool = False):
         super().__init__()
         self.config = config
-        self.phrase = BertModel(config)
-        self.query_start = BertModel(config)
-        self.query_end = BertModel(config)
+        tower = (ModernBertModel if isinstance(config, ModernBertConfig)
+                 else BertModel)
+        self.phrase = tower(config)
+        self.query_start = tower(config)
+        self.query_end = tower(config)
         self.filter = LinearHead(config.hidden_size, 2)
         if with_teacher:
-            self.cross = BertModel(config)
+            self.cross = tower(config)
             self.qa_outputs = LinearHead(config.hidden_size, 2)
 
     @property
@@ -76,7 +85,7 @@ class EncoderParams(nn.Module):
         return self.filter.w.device
 
 
-def init_encoder_params(config: BertConfig,
+def init_encoder_params(config: TowerConfig,
                         generator: Optional[torch.Generator] = None,
                         device="cuda", with_teacher: bool = False
                         ) -> EncoderParams:

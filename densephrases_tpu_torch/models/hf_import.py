@@ -12,6 +12,11 @@ load_encoder`` turns that tree into ``EncoderParams`` with
 ``state_dict_from_encoder`` goes the other way (the port's modules → a
 state dict under the reference's key names), which the tests and
 ``chip_smoke.py`` use to write ``pytorch_model.bin`` files.
+
+ModernBERT towers, which the JAX package lacks, map straight onto the
+port's modules: ``modernbert_encoder_from_state_dict`` takes the published
+HF names under each DensePhrases tower prefix, and
+``modernbert_state_dict_from_encoder`` writes them.
 """
 
 from __future__ import annotations
@@ -133,6 +138,100 @@ def state_dict_from_encoder(params, spelling: int = 0,
                 t = cpu(getattr(layer, leaf))
                 sd[f"{p}encoder.layer.{i}.{key}"] = \
                     t.T.contiguous() if transpose else t
+    sd["filter_linear.weight"] = cpu(params.filter.w).T.contiguous()
+    sd["filter_linear.bias"] = cpu(params.filter.b)
+    return sd
+
+
+# ------------------------------------------------------------- ModernBERT
+# A HF ModernBERT checkpoint (``ModernBertForMaskedLM``'s ``model.`` level)
+# under each DensePhrases tower prefix. The port keeps the published layout
+# (Linear weights [out, in]), so the map only renames: the port's leaf →
+# the published key. Layer 0 has no ``attn_norm`` (its attention norm is
+# the identity).
+MODERNBERT_EMBED_KEYS = {
+    "tok_emb": "model.embeddings.tok_embeddings.weight",
+    "emb_norm": "model.embeddings.norm.weight",
+    "final_norm": "model.final_norm.weight",
+}
+MODERNBERT_LAYER_KEYS = {
+    "attn_norm": "attn_norm.weight",
+    "wqkv": "attn.Wqkv.weight",
+    "wo": "attn.Wo.weight",
+    "mlp_norm": "mlp_norm.weight",
+    "wi": "mlp.Wi.weight",
+    "mlp_wo": "mlp.Wo.weight",
+}
+
+
+def modernbert_keys(config) -> Dict[str, str]:
+    """The port's parameter name in a ``ModernBertModel`` → its published
+    key (without a tower prefix)."""
+    keys = dict(MODERNBERT_EMBED_KEYS)
+    for i in range(config.num_hidden_layers):
+        for leaf, key in MODERNBERT_LAYER_KEYS.items():
+            if leaf == "attn_norm" and i == 0:
+                continue
+            keys[f"layers.{i}.{leaf}"] = f"model.layers.{i}.{key}"
+    return keys
+
+
+def modernbert_encoder_from_state_dict(sd: Dict[str, torch.Tensor], config,
+                                       towers=tuple(TOWER_PREFIXES)):
+    """``EncoderParams`` of ModernBERT towers holding the state dict's own
+    tensors (no copy), keyed by the published names under each tower's
+    current DensePhrases prefix (``query_start_encoder.model.layers.0.``
+    ...). The towers not in ``towers``, and the filter head where
+    ``filter_linear.*`` is absent, are zeros of the state dict's type and
+    device. The parameters need no gradient."""
+    from densephrases_tpu_torch.models.encoder import EncoderParams
+
+    with torch.device("meta"):
+        params = EncoderParams(config)
+    first = next(iter(sd.values()))
+
+    def put(module, name, t):
+        module._parameters[name] = torch.nn.Parameter(t, requires_grad=False)
+
+    names = modernbert_keys(config)
+    for tower in towers:
+        prefix = TOWER_PREFIXES[tower][0]
+        model = getattr(params, tower)
+        for name, key in names.items():
+            mod_name, _, leaf = name.rpartition(".")
+            module = model.get_submodule(mod_name) if mod_name else model
+            t = sd[prefix + key]
+            if t.shape != module._parameters[leaf].shape:
+                raise ValueError(f"{prefix + key}: shape {tuple(t.shape)}, "
+                                 f"the config wants "
+                                 f"{tuple(module._parameters[leaf].shape)}")
+            put(module, leaf, t)
+    if "filter_linear.weight" in sd:
+        put(params.filter, "w", sd["filter_linear.weight"].T)
+        put(params.filter, "b", sd["filter_linear.bias"])
+    rest = [(mod, name, p.shape) for mod in params.modules()
+            for name, p in mod.named_parameters(recurse=False)
+            if p.is_meta]
+    zeros = torch.zeros(sum(int(np.prod(s)) for _, _, s in rest),
+                        dtype=first.dtype, device=first.device)
+    at = 0
+    for mod, name, shape in rest:
+        n = int(np.prod(shape))
+        put(mod, name, zeros[at:at + n].view(shape))
+        at += n
+    return params
+
+
+def modernbert_state_dict_from_encoder(params) -> Dict[str, torch.Tensor]:
+    """ModernBERT ``EncoderParams`` → a state dict under the published
+    names and the current DensePhrases prefixes, fp32 on the CPU."""
+    sd: Dict[str, torch.Tensor] = {}
+    cpu = lambda t: t.detach().to("cpu", torch.float32).clone()  # noqa: E731
+    names = modernbert_keys(params.config)
+    for tower, prefixes in TOWER_PREFIXES.items():
+        own = dict(getattr(params, tower).named_parameters())
+        for name, key in names.items():
+            sd[prefixes[0] + key] = cpu(own[name])
     sd["filter_linear.weight"] = cpu(params.filter.w).T.contiguous()
     sd["filter_linear.bias"] = cpu(params.filter.b)
     return sd
