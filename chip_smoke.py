@@ -244,6 +244,8 @@ IVF_BATCH = 2 * QUERY_BATCH  # start and end query rows, stacked
 # the whole scans around C and D at that shape: top-10, and for the
 # OPQ96-like scan the index's refine factor 4 (IVFConfig.refine_factor)
 IVF_SCAN_TOP_K, IVF_REFINE_FACTOR = 10, 4
+# D's fused select at the ivf-opq96.nq-b64 cell's shape (2^23 rows)
+PQ_SELECT_LISTS, PQ_SELECT_ROWS, PQ_SELECT_NPROBE = 16384, 512, 256
 # C and D at ragged shapes against their plain twins (correctness only):
 # batches of 1, 37 and 130 rows (a lone query, a partial query group, more
 # than 128 rows); C at dim 64 (SQ8 and SQ4) and at 68 / 72 (rows of 68 and
@@ -763,9 +765,11 @@ def phase_ivf_kernels():
                 row_perm, books, refine, 0.0, 1.0,
                 scan_k=IVF_SCAN_TOP_K * IVF_REFINE_FACTOR, **scan_args),
                 iters=10)
-            row.update(scan_ms=ms, kernel_share_of_scan=row["ms"] / ms)
+            # at scan_k 40 on 8-bit codes the scan takes D's fused select,
+            # which replaces D's scores: the scan's time, not D's share
+            row.update(scan_ms=ms)
             log("2 kernels", kernel="pq_pack_score", at=row["at"],
-                scan_ms=ms, kernel_share_of_scan=row["ms"] / ms)
+                scan_ms=ms, scan_route="pq_scan8_topk")
         rows["D"].append(row)
         del codes, lut
     del refine
@@ -801,6 +805,50 @@ def phase_flat_scan():
             and row["clear_share"] > 0.5 and row["ids_equal_where_clear"]
             and row["valid_ids"]):
         raise AssertionError(f"flat_scan_topk disagrees with plain: {row}")
+    return row
+
+
+def phase_pq_select():
+    """Kernel D with the select fused (``ops/ivf_pack.pq_scan_topk`` and
+    its merge, the route ``packed_pq_scan`` takes for 8-bit codes and k <=
+    64) against its plain twin ``pq_pack_score_topk_plain``, and beside D
+    with the select after it (the route before), at the
+    ``ivf-opq96.nq-b64`` cell's shape, through
+    ``tools/bench_pq_select.measure``: one launch of the fused entry and
+    none of D's a scan; against the twin and against D with its select,
+    every score within the tool's ``tolerance`` and the same ids at every
+    rank clear of it; the fused route's allocator peak below a sixteenth of
+    one [128, budget·32] fp32 score matrix. Times both routes, the twin, D
+    alone and the fused kernel alone."""
+    from densephrases_tpu_torch.tools import bench_pq_select as bps
+
+    got = bps.measure(bps.layout(PQ_SELECT_LISTS, PQ_SELECT_ROWS, IVF_BATCH,
+                                 PQ_SELECT_NPROBE, 96, SEED),
+                      IVF_SCAN_TOP_K * IVF_REFINE_FACTOR)
+    agree = ("within_tolerance", "clear_share", "sets_equal_where_clear",
+             "alone_share", "ids_equal_where_alone")
+    keys = ("launches_a_scan", *agree, *(f"unfused_{k}" for k in agree),
+            "unfused_score_max_abs_diff", "fused_ms", "kernel_ms",
+            "plain_ms", "unfused_ms", "d_ms", "fused_peak_bytes",
+            "unfused_peak_bytes", "scores_bytes", "real_blocks",
+            "budget_blocks", "tiles", "bound_ms", "bound_by", "share_pct")
+    row = {"at": f"B={IVF_BATCH} M=96 ksub=256, {got['rows']} rows, "
+                 f"{PQ_SELECT_LISTS} lists, nprobe {PQ_SELECT_NPROBE}, "
+                 f"k {got['k']}",
+           "max_abs_err": got["score_max_abs_diff"],
+           "tol": got["tolerance_max"], **{k: got[k] for k in keys}}
+    log("2 kernels", kernel="pq_scan_topk", **row)
+    torch.cuda.empty_cache()
+    agrees = lambda pre: (row[f"{pre}within_tolerance"]  # noqa: E731
+                          and row[f"{pre}clear_share"] > 0.5
+                          and row[f"{pre}sets_equal_where_clear"]
+                          and row[f"{pre}ids_equal_where_alone"])
+    if not (row["launches_a_scan"] == {"dph_pq_pack_score": 0,
+                                       "dph_pq_scan_topk": 1}
+            and agrees("") and agrees("unfused_")
+            and 16 * row["fused_peak_bytes"] < row["scores_bytes"]):
+        raise AssertionError(f"pq_scan_topk disagrees with its plain twin "
+                             f"or with D and its select: {row}")
     return row
 
 
@@ -912,16 +960,19 @@ def host_ms(fn, reps=5):
 
 def phase_ivf(store, params, config, tok, flat_model, queries, rng):
     """Phase 5: build IVF indexes on the dumped store with the port and
-    serve through them. Returns the launch counts of kernels C and D."""
+    serve through them. Returns the launch counts of kernels C, D (its
+    scores: OPQ192x4's 4-bit codes) and F (D with the select fused:
+    OPQ96's 8-bit codes at scan_k 40 or less)."""
     from densephrases_tpu_torch.index.ivf import IVFConfig, IVFIndex
     from densephrases_tpu_torch.index.oracle import check_top1
     from densephrases_tpu_torch.index.search import MIPS
     from densephrases_tpu_torch.model import DensePhrases
     from densephrases_tpu_torch.ops.ivf_pack import (
-        IVF_PACK_SCORE, NEG_INF, PQ_PACK_SCORE)
+        IVF_PACK_SCORE, NEG_INF, PQ_PACK_SCORE, PQ_SCAN_TOPK)
 
     IVF_PACK_SCORE.launches = 0
     PQ_PACK_SCORE.launches = 0
+    PQ_SCAN_TOPK.launches = 0
     max_nlist = int(np.ceil(IVFConfig().nlist_growth_cap * IVF_CLUSTERS))
 
     def build(fq):
@@ -1004,8 +1055,10 @@ def phase_ivf(store, params, config, tok, flat_model, queries, rng):
         verdicts.append(check_top1(store, q, top))
     log("5 ivf", oracle="pass", index="SQ8 full probe",
         verdicts=",".join(verdicts))
-    counts = {"C": IVF_PACK_SCORE.launches, "D": PQ_PACK_SCORE.launches}
-    log("5 ivf", c_launches=counts["C"], d_launches=counts["D"])
+    counts = {"C": IVF_PACK_SCORE.launches, "D": PQ_PACK_SCORE.launches,
+              "F": PQ_SCAN_TOPK.launches}
+    log("5 ivf", c_launches=counts["C"], d_launches=counts["D"],
+        f_launches=counts["F"])
     if min(counts.values()) <= 0:
         raise AssertionError(f"phase 5 did not launch every IVF kernel: "
                              f"{counts}")
@@ -1248,7 +1301,7 @@ def phase_offline(tmp, params, config, tok, docs, store, flat_model, queries,
     from densephrases_tpu_torch.index.search import MIPS
     from densephrases_tpu_torch.models.attention import ATTENTION_FWD
     from densephrases_tpu_torch.ops.ivf_pack import (
-        IVF_PACK_SCORE, PQ_PACK_SCORE)
+        IVF_PACK_SCORE, PQ_PACK_SCORE, PQ_SCAN_TOPK)
 
     root = os.path.join(tmp, "offline")
     corpus, enc, dump = (os.path.join(root, d) for d in ("corpus", "enc", "dump"))
@@ -1264,10 +1317,13 @@ def phase_offline(tmp, params, config, tok, docs, store, flat_model, queries,
         json.dump(synthetic_qa(rng, docs, OFFLINE_QUESTIONS), f)
     save_encoder(enc, params, config, tok)
     layers = config.num_hidden_layers
-    want = {"A": 0, "C": 0, "D": 0}
+    # OPQ96 is served at top_k 10 everywhere here: 8-bit codes at scan_k
+    # 40, so D with its fused select (F), and never D's scores alone
+    want = {"A": 0, "C": 0, "D": 0, "F": 0}
     ATTENTION_FWD.launches = 0
     IVF_PACK_SCORE.launches = 0
     PQ_PACK_SCORE.launches = 0
+    PQ_SCAN_TOPK.launches = 0
 
     # dump: phase 3's docs and encoder, phase 3's window length and batch
     t0 = time.perf_counter()
@@ -1303,9 +1359,9 @@ def phase_offline(tmp, params, config, tok, docs, store, flat_model, queries,
         del index
 
     # the eval over each index: per batch of questions, two query towers
-    # and one union scan (C over SQ8, D over OPQ96 with its device refine)
+    # and one union scan (C over SQ8, F over OPQ96 with its device refine)
     batches = -(-OFFLINE_QUESTIONS // OFFLINE_EVAL_BATCH)
-    for fq, kernel in (("SQ8", "C"), ("OPQ96", "D")):
+    for fq, kernel in (("SQ8", "C"), ("OPQ96", "F")):
         out_dir = os.path.join(root, f"eval_{fq}")
         t0 = time.perf_counter()
         metrics = eval_phrase_retrieval.main(
@@ -1345,7 +1401,7 @@ def phase_offline(tmp, params, config, tok, docs, store, flat_model, queries,
         ms = host_ms(lambda: mips.search(qvec, top_k=10))
         ids[mode] = index.search(stacked, top_k=10, as_numpy=True)[1]
         served[mode] = [r[0] for r in mips.search(qvec, top_k=10)]
-        want["D"] += 6 + 1 + 1  # host_ms's 6 searches, the ids, the spans
+        want["F"] += 6 + 1 + 1  # host_ms's 6 searches, the ids, the spans
         log("7 offline", index="OPQ96", refine_mode=mode,
             decode_mode=mips.pq_serve is not None,
             rescore_corpus_on_device=mips.vecs_dev is not None,
@@ -1389,7 +1445,7 @@ def phase_offline(tmp, params, config, tok, docs, store, flat_model, queries,
     torch.cuda.empty_cache()
 
     counts = {"A": ATTENTION_FWD.launches, "C": IVF_PACK_SCORE.launches,
-              "D": PQ_PACK_SCORE.launches}
+              "D": PQ_PACK_SCORE.launches, "F": PQ_SCAN_TOPK.launches}
     log("7 offline", **{f"{k.lower()}_launches": v for k, v in counts.items()},
         **{f"{k.lower()}_expected": v for k, v in want.items()})
     if counts != want:
@@ -1782,7 +1838,8 @@ def phase_trainers(tmp, config, tok, docs, smi):
         ATTENTION_BWD, ATTENTION_FWD)
     from densephrases_tpu_torch.models.encoder import embed_query
     from densephrases_tpu_torch.models.hf_import import state_dict_from_encoder
-    from densephrases_tpu_torch.ops.ivf_pack import PQ_PACK_SCORE
+    from densephrases_tpu_torch.ops.ivf_pack import (
+        PQ_PACK_SCORE, PQ_SCAN_TOPK)
     from densephrases_tpu_torch.train import cross_encoder, mlm, query
     from densephrases_tpu_torch.train.cross_encoder import init_cross_params
 
@@ -1793,7 +1850,8 @@ def phase_trainers(tmp, config, tok, docs, smi):
                           for d in ("enc", "dump", "qa.json"))
     squad = os.path.join(tmp, "train.json")
     layers = config.num_hidden_layers
-    kernels = {"A": ATTENTION_FWD, "B": ATTENTION_BWD, "D": PQ_PACK_SCORE}
+    kernels = {"A": ATTENTION_FWD, "B": ATTENTION_BWD, "D": PQ_PACK_SCORE,
+               "F": PQ_SCAN_TOPK}
     totals = {k: 0 for k in kernels}
     rc_shape = ["--max_seq_length", str(TRAIN_SEQ), "--max_query_length",
                 str(TRAIN_QUERY)]
@@ -1841,7 +1899,7 @@ def phase_trainers(tmp, config, tok, docs, smi):
              "--num_train_epochs", "1"] + rc_shape, device=DEVICE)
     steps = len(losses)
     wall, peak = finish("a cross_encoder", t0, {
-        "A": 2 * layers * steps, "B": layers * steps, "D": 0})
+        "A": 2 * layers * steps, "B": layers * steps, "D": 0, "F": 0})
     report("cross_encoder", times, wall, peak, batch=CROSS_BATCH,
            cross_len=TRAIN_SEQ + TRAIN_QUERY, loss_first=losses[0],
            loss_last=losses[-1])
@@ -1861,7 +1919,7 @@ def phase_trainers(tmp, config, tok, docs, smi):
     # per step 3 towers + their remat recomputes + the teacher; then
     # filter_test's one batch
     finish("b teacher_into_rc", t0, {"A": 2 * 7 * layers + layers,
-                                     "B": 2 * 3 * layers, "D": 0})
+                                     "B": 2 * 3 * layers, "D": 0, "F": 0})
     random = init_cross_params(config, torch.Generator().manual_seed(43),
                                device=DEVICE)  # what no --teacher_dir gives
     sums = {"loaded": checksum(state.params.cross, state.params.qa_outputs),
@@ -1881,7 +1939,7 @@ def phase_trainers(tmp, config, tok, docs, smi):
     ps = [e["context"] for e in examples]
     t0 = start()
     got = read_passages(teacher, config, tok, qs, ps, max_length=READER_LEN)
-    finish("c reader", t0, {"A": layers, "B": 0, "D": 0})
+    finish("c reader", t0, {"A": layers, "B": 0, "D": 0, "F": 0})
     want = read_passages(teacher, config, tok, qs, ps, max_length=READER_LEN,
                          attn_impl="plain")
     same = [(g["start_pos"], g["end_pos"]) == (w["start_pos"], w["end_pos"])
@@ -1912,7 +1970,8 @@ def phase_trainers(tmp, config, tok, docs, smi):
             texts, tok, mcfg, steps=MLM_STEPS, batch_size=MLM_BATCH,
             seq_len=MLM_SEQ, log_every=1, seed=SEED, device=DEVICE)
     wall, peak = finish("d mlm", t0, {"A": 2 * layers * MLM_STEPS,
-                                      "B": layers * MLM_STEPS, "D": 0})
+                                      "B": layers * MLM_STEPS, "D": 0,
+                                      "F": 0})
     report("mlm", times, wall, peak, batch=MLM_BATCH, seq=MLM_SEQ,
            loss=hist["loss"], acc=hist["acc"])
     if len(hist["loss"]) != MLM_STEPS or not np.isfinite(hist["loss"]).all():
@@ -1983,12 +2042,13 @@ def phase_trainers(tmp, config, tok, docs, smi):
     steps, skipped = hist["steps"][0], hist["skipped"][0]
     n_batches = -(-OFFLINE_QUESTIONS // QSFT_BATCH)
     dev_batches = -(-OFFLINE_QUESTIONS // 64)  # DensePhrases.evaluate's
-    # per batch: the searcher's two query towers and one OPQ96 scan; per
-    # step the two towers forward, their remat recomputes and backward;
-    # the dev eval's towers and scans
+    # per batch: the searcher's two query towers and one OPQ96 scan (top_k
+    # QSFT_TOP_K: scan_k 400, D's scores); per step the two towers
+    # forward, their remat recomputes and backward; the dev eval's towers
+    # and scans (top_k 10: scan_k 40, the fused select)
     wall, peak = finish("e query_ft", t0, {
         "A": 2 * layers * (n_batches + dev_batches) + 4 * layers * steps,
-        "B": 2 * layers * steps, "D": n_batches + dev_batches})
+        "B": 2 * layers * steps, "D": n_batches, "F": dev_batches})
     report("query_ft", times, wall, peak, batch=QSFT_BATCH, top_k=QSFT_TOP_K,
            batches=n_batches, skipped=skipped, loss=hist["loss"],
            top1=hist["top1"], dev_em=hist["dev_em"])
@@ -2031,7 +2091,7 @@ def phase_trainers(tmp, config, tok, docs, smi):
     t0 = start()
     want_q = embed_query(source, ids, am, tt, compute_dtype=torch.float32)
     got_q = embed_query(imported, ids, am, tt, compute_dtype=torch.float32)
-    finish("f hf_import", t0, {"A": 4 * layers, "B": 0, "D": 0})
+    finish("f hf_import", t0, {"A": 4 * layers, "B": 0, "D": 0, "F": 0})
     err = max(rel_err(g, w) for g, w in zip(got_q, want_q))
     again = embed_query(source, ids, am, tt, compute_dtype=torch.float32)
     log("9 trainers", part="f hf_import",
@@ -2129,12 +2189,13 @@ def so_serve(rank, world, tmp, device, kernels):
     codes = np.load(inp["corpus"], mmap_mode="r")
     # each rank offers its own; every rank serves rank 0's
     q = broadcast_queries(np.load(inp["queries"]) + rank)
-    out = {"queries": q, "want": {"A": 0, "B": 0, "C": 0, "D": 0}}
+    out = {"queries": q, "want": {"A": 0, "B": 0, "C": 0, "D": 0, "F": 0}}
     flat, out["flat_bytes"] = device_bytes(lambda: FlatIndex(codes, mesh=mesh))
     out["flat"] = flat.search(q, top_k=10)
     out["flat_ms"] = host_ms(lambda: flat.search(q, top_k=10))
     del flat
-    for fq, kernel in (("SQ8", "C"), ("OPQ96", "D")):
+    # OPQ96 at top_k 10: scan_k 40 on 8-bit codes, the fused select (F)
+    for fq, kernel in (("SQ8", "C"), ("OPQ96", "F")):
         t0 = time.perf_counter()
         cfg = IVFConfig(num_clusters=inp["lists"], fine_quant=fq,
                         **SO_ITERS)
@@ -2278,7 +2339,8 @@ def so_train(rank, world, tmp, device, kernels):
          "B": 5 * train_step_launches(layers, hard_negatives=False)["B"]})
     out["driver"] = (state.step, int(state.pre_batch["count"]),
                      checksum(state.params))
-    out["want"] = {"A": out["mips_launches"][1], "B": 0, "C": 0, "D": 0}
+    out["want"] = {"A": out["mips_launches"][1], "B": 0, "C": 0, "D": 0,
+                   "F": 0}
     for part in ("step_launches", "driver_launches"):
         for k in "AB":
             out["want"][k] += out[part][1][k]
@@ -2296,7 +2358,7 @@ def scale_out_rank(rank, world, task, tmp, device):
         ATTENTION_BAND, ATTENTION_BWD, ATTENTION_FWD)
     from densephrases_tpu_torch.ops.flat_scan import FLAT_SCAN_TOPK
     from densephrases_tpu_torch.ops.ivf_pack import (
-        IVF_PACK_SCORE, PQ_PACK_SCORE)
+        IVF_PACK_SCORE, PQ_PACK_SCORE, PQ_SCAN_TOPK)
     from densephrases_tpu_torch.parallel.multihost import init_multihost
 
     from densephrases_tpu_torch.utils.device import resolve_device
@@ -2307,7 +2369,7 @@ def scale_out_rank(rank, world, task, tmp, device):
     torch.backends.cuda.matmul.allow_tf32 = False
     init_multihost(f"file://{tmp}/pg_{task}", world, rank, backend="gloo")
     kernels = {"A": ATTENTION_FWD, "B": ATTENTION_BWD, "C": IVF_PACK_SCORE,
-               "D": PQ_PACK_SCORE}
+               "D": PQ_PACK_SCORE, "F": PQ_SCAN_TOPK}
     try:
         for k in (*kernels.values(), FLAT_SCAN_TOPK):
             k.launches = 0
@@ -2386,7 +2448,7 @@ def phase_scale_out(tmp, store, model, config, docs, rng):
     from densephrases_tpu_torch.models.encoder import (
         RCLossConfig, init_encoder_params)
     from densephrases_tpu_torch.ops.ivf_pack import (
-        IVF_PACK_SCORE, PQ_PACK_SCORE)
+        IVF_PACK_SCORE, PQ_PACK_SCORE, PQ_SCAN_TOPK)
     from densephrases_tpu_torch.parallel.multihost import init_multihost
     from densephrases_tpu_torch.tools.parallel_dump import (
         merge_shards, run_parallel_dump)
@@ -2396,7 +2458,7 @@ def phase_scale_out(tmp, store, model, config, docs, rng):
     root = os.path.join(tmp, "scale_out")
     os.makedirs(root)
     kernels = {"A": ATTENTION_FWD, "B": ATTENTION_BWD, "C": IVF_PACK_SCORE,
-               "D": PQ_PACK_SCORE}
+               "D": PQ_PACK_SCORE, "F": PQ_SCAN_TOPK}
     layers = config.num_hidden_layers
     batch = dp_batch(rng, config.vocab_size, SO_TRAIN_RANKS * TRAIN_BATCH)
     np.savez(os.path.join(root, "batch.npz"), **batch)
@@ -2445,7 +2507,8 @@ def phase_scale_out(tmp, store, model, config, docs, rng):
         del meshed
         meshed_step = dp_step(dmesh)
         here = {n: k.launches for n, k in kernels.items()}
-        here_want = {"C": 0, "D": 0, **train_step_launches(layers)}
+        here_want = {"C": 0, "D": 0, "F": 0,
+                     **train_step_launches(layers)}
         flat_equal = all(np.array_equal(a, b) for a, b in zip(got, single))
         step_equal = (plain[0] == meshed_step[0]
                       and same_params(plain[1], meshed_step[1]))
@@ -2513,7 +2576,8 @@ def phase_scale_out(tmp, store, model, config, docs, rng):
                                      f"differ from ShardedIVF's")
         del subs, host
         torch.cuda.empty_cache()
-    serve_launches = {k: sum(o["launches"][k] for o in outs) for k in "ABCD"}
+    serve_launches = {k: sum(o["launches"][k] for o in outs)
+                      for k in "ABCDF"}
     serve_launches["E"] = sum(o["e_launches"] for o in outs)
     log("10 scale_out", part="b", launches_per_rank=[o["launches"]
                                                      for o in outs],
@@ -2608,7 +2672,8 @@ def phase_scale_out(tmp, store, model, config, docs, rng):
             or outs[0]["driver"][:2] != (5, 5):
         raise AssertionError("phase 10c: train_rc.main over the ranks "
                              f"went wrong: {outs[0]['driver']} {rows}")
-    train_launches = {k: sum(o["launches"][k] for o in outs) for k in "ABCD"}
+    train_launches = {k: sum(o["launches"][k] for o in outs)
+                      for k in "ABCDF"}
     train_launches["E"] = sum(o["e_launches"] for o in outs)
     log("10 scale_out", part="c", launches_per_rank=[o["launches"]
                                                      for o in outs],
@@ -2636,7 +2701,7 @@ def phase_scale_out(tmp, store, model, config, docs, rng):
                              "from phase 7's dump")
 
     counts = {k: here[k] + serve_launches[k] + train_launches[k]
-              for k in "ABCD"}
+              for k in "ABCDF"}
     log("10 scale_out", **{f"{k.lower()}_launches": v
                            for k, v in counts.items()},
         mesh_work="a's mesh work in this process and every rank's task")
@@ -2798,7 +2863,7 @@ def phase_demo(tmp, config, docs, rng, smi):
     from densephrases_tpu_torch.model import DensePhrases
     from densephrases_tpu_torch.models.attention import ATTENTION_FWD
     from densephrases_tpu_torch.ops.ivf_pack import (
-        IVF_PACK_SCORE, PQ_PACK_SCORE)
+        IVF_PACK_SCORE, PQ_PACK_SCORE, PQ_SCAN_TOPK)
     from densephrases_tpu_torch.options import Options
     from densephrases_tpu_torch.serve import server
     from densephrases_tpu_torch.serve.fused import FusedServer
@@ -2820,9 +2885,10 @@ def phase_demo(tmp, config, docs, rng, smi):
     batches = [questions[i:i + DEMO_BATCH]
                for i in range(0, len(questions), DEMO_BATCH)]
     layers = config.num_hidden_layers
-    kernels = {"A": ATTENTION_FWD, "C": IVF_PACK_SCORE, "D": PQ_PACK_SCORE}
+    kernels = {"A": ATTENTION_FWD, "C": IVF_PACK_SCORE, "D": PQ_PACK_SCORE,
+               "F": PQ_SCAN_TOPK}
     comparing = lambda: uncounted(*kernels.values())
-    want = {"A": 0, "C": 0, "D": 0}
+    want = {"A": 0, "C": 0, "D": 0, "F": 0}
     flags = ["--load_dir", enc, "--dump_dir", dump, "--index_name", "flat",
              "--max_query_length", str(MAX_QUERY_LENGTH), "--top_k",
              str(DEMO_TOP_K)]
@@ -2911,7 +2977,8 @@ def phase_demo(tmp, config, docs, rng, smi):
 
         # ---- b. two-process mode: q_serve + p_serve over SQ8 and OPQ96
         ivf_ms, ivf_batches = {}, batches[:DEMO_IVF_BATCHES]
-        for fq, kernel in (("SQ8", "C"), ("OPQ96", "D")):
+        # OPQ96 at DEMO_TOP_K 10: scan_k 40, the fused select (F)
+        for fq, kernel in (("SQ8", "C"), ("OPQ96", "F")):
             index = IVFIndex.load(os.path.join(
                 dump, "start", f"{IVF_CLUSTERS}_flat_{fq}"), device=DEVICE)
             ivf_model = DensePhrases(model.params, model.config,
@@ -3196,13 +3263,13 @@ def phase_tools(tmp, smi):
     from densephrases_tpu_torch.models.attention import (
         ATTENTION_BWD, ATTENTION_FWD)
     from densephrases_tpu_torch.ops.ivf_pack import (
-        IVF_PACK_SCORE, PQ_PACK_SCORE)
+        IVF_PACK_SCORE, PQ_PACK_SCORE, PQ_SCAN_TOPK)
     from densephrases_tpu_torch.tools import (
         bench_cpu_ivf, bench_ivf_e2e, bench_ivf_real, bench_ivf_scale,
         bench_serve_real, bench_tiered30m, dsmall)
 
     kernels = {"A": ATTENTION_FWD, "B": ATTENTION_BWD, "C": IVF_PACK_SCORE,
-               "D": PQ_PACK_SCORE}
+               "D": PQ_PACK_SCORE, "F": PQ_SCAN_TOPK}
     root = os.path.join(tmp, "tools")
     work = os.path.join(root, "work")
     os.makedirs(work)
@@ -3249,10 +3316,11 @@ def phase_tools(tmp, smi):
     grid_s = time.perf_counter() - t0
     # per probe: the b1 and b64 searches (one each, then 2 warmup + n_rep
     # timed); SQ8's batch of 1 takes the probe-score path (no C); one
-    # counted search of the kernel row at b64
+    # counted search of the kernel row at b64. OPQ96 at GT_K 20: scan_k 80
+    # > PQ_K_MAX, so D's scores and the select after them, never F
     per = 1 + 2 + AT_N_REP
     want_a = {"C": len(AT_PROBES) * ((per + 1) + (2 * per + 1)),
-              "D": len(AT_PROBES) * (2 * per + 1)}
+              "D": len(AT_PROBES) * (2 * per + 1), "F": 0}
     now = part("a bench_ivf_scale", dict.fromkeys(kernels, 0), want_a)
     for quant in AT_QUANTS:
         row = grid[f"ivf_{quant}"]
@@ -3330,8 +3398,13 @@ def phase_tools(tmp, smi):
                  str(AT_NLIST), "--quant", "OPQ96", "--serve_mode", mode,
                  "--nprobe", str(p), "--workdir", work, "--out",
                  out("BENCH_IVF.json")], device=DEVICE)
+            # top_k 10 (scan_k 40, or 10 without a refine): F; the recall
+            # probe's top_k 20 scans 80 columns where a refine widens it
+            # (D's scores), 20 in decode mode (F)
+            d = 0 if mode == "decode" else 1
             now = part(f"c bench_ivf_e2e {mode} p{p}", now,
-                       {"A": 2 * layers * E2E_ENCODES, "D": E2E_SEARCHES})
+                       {"A": 2 * layers * E2E_ENCODES, "D": d,
+                        "F": E2E_SEARCHES - d})
             log("12 tools", part="c", mode=mode, nprobe=p,
                 seconds=time.perf_counter() - t0, qps=e2e["qps"],
                 stages_ms=json.dumps(e2e["stages_ms"]),
@@ -3487,9 +3560,11 @@ def phase_tools(tmp, smi):
              str(REAL_NQ), "--quants", "SQ8,SQ4,OPQ", "--probes",
              ",".join(map(str, REAL_PROBES)), "--out",
              out("IVF_REAL.json")], device=DEVICE)
+        # OPQ96 a probe: top_k 20 at refine 16 (scan_k 320, D's scores),
+        # then without the refine matrix (scan_k 20, F)
         np_ = len(REAL_PROBES)
         now = part("f bench_ivf_real", now,
-                   {"A": 2 * layers, "C": 2 * np_, "D": 2 * np_})
+                   {"A": 2 * layers, "C": 2 * np_, "D": np_, "F": np_})
         for key in ("ivf_SQ8", "ivf_SQ4", "ivf_OPQ96"):
             for p in REAL_PROBES:
                 r = rv[key][f"p{p}"]
@@ -3503,7 +3578,7 @@ def phase_tools(tmp, smi):
         with open(os.path.join(ds_dir, "qa_doc_split.json")) as f:
             n_dev = len(json.load(f)["dev"])
         em_batches = min(12, n_dev // 64)
-        for index, k in (("flat", None), ("OPQ", "D")):
+        for index, k in (("flat", None), ("OPQ", "F")):  # top_k 1 and 10
             sr = bench_serve_real.main(
                 ["--store", store, "--encoder", enc, "--index", index,
                  "--nprobe", "64", "--out", out("SERVE_REAL.json")],
@@ -3985,6 +4060,7 @@ def main():
     ivf_rows = phase_ivf_kernels()
     ivf_edge_err = phase_ivf_edges()
     flat_row = phase_flat_scan()
+    pq_select_row = phase_pq_select()
 
     def counted_e(phase, fn, *args):
         """fn's result and kernel E's launches over it, which must be
@@ -4151,6 +4227,8 @@ def main():
                      if r["shape"] == "64x12x32x64" and r["dtype"] == "bfloat16")
     bwd_row = next(r for r in bwd_rows
                    if r["shape"] == "12x12x384x64" and r["dtype"] == "bfloat16")
+    fused_row = {**pq_select_row, "ms": pq_select_row["kernel_ms"],
+                 "library_ms": None}
     print(json.dumps({"kernels": [{
         "name": "attention_fwd", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/attention_fwd.cu",
@@ -4222,6 +4300,26 @@ def main():
         **timing(ivf_rows["D"][0], *ivf_rows["D"]),
         "edge_rel_err": ivf_edge_err["D"],
         "at": ivf_rows["D"][0]["at"]}, {
+        "name": "pq_scan8_topk", "route": "cuda",
+        "source": "densephrases_tpu_torch/csrc/pq_pack_score.cu",
+        "replaces": "densephrases_tpu/ops/ivf_pack.py:343 with the select "
+                    "after it",
+        "launches": (ivf_launches["F"] + offline_launches["F"]
+                     + trainer_launches["F"] + scale_out_launches["F"]
+                     + demo_launches["F"] + tool_launches["at_scale"]["F"]
+                     + tool_launches["real"]["F"]),
+        "launches_by_path": {"ivf": ivf_launches["F"],
+                             "offline": offline_launches["F"],
+                             "trainers": trainer_launches["F"],
+                             "scale_out": scale_out_launches["F"],
+                             "demo": demo_launches["F"],
+                             "at_scale": tool_launches["at_scale"]["F"],
+                             "real": tool_launches["real"]["F"]},
+        "max_abs_err": pq_select_row["max_abs_err"],
+        **timing(fused_row, fused_row),
+        "route_ms": pq_select_row["fused_ms"],
+        "unfused_ms": pq_select_row["unfused_ms"],
+        "at": pq_select_row["at"]}, {
         "name": "flat_scan_topk", "route": "cuda",
         "source": "densephrases_tpu_torch/csrc/flat_scan_topk.cu",
         "replaces": "none (the reference's flat scan is XLA: "

@@ -48,12 +48,36 @@
 // from a [M][16][8] LUT took 1.30 ms against this design's 0.85; four m16
 // tiles a warp (halving the ldmatrix reads) 0.91 against two tiles' 0.83.
 //
+// 8-bit with the select fused (pq_scan8_topk, entry dph_pq_scan_topk): the
+// scores above, finished in registers and never written. At the serve shape
+// the block table covers every list (the guard budget), so the unfused path
+// writes a [128, 8.4M] fp32 matrix of which 12-16% are real rows, and the
+// select after it (the residual gather, the mask, a stable sort) cost about
+// ten times D's own time. Here a lane adds its row's residual base
+// q_raw . c_l (l from a per-row list id, the base from a [n_q, nlist] table
+// in L2) to each query's sum, drops rows at or past n_real, and offers the
+// score to the block's list for that query: the tile's k best (score,
+// packed column) pairs, ties to the lower column (ops/topk.topk's rule), k
+// up to 64, two slots a lane. As in kernel E (flat_scan_topk.cu), a cheap
+// test comes first: each query's k-th pair is one 64-bit word in shared
+// memory, read without a lock and compared once a warp round (one vote a
+// query); only rows above it take the query's lock and go in by ballot and
+// shuffle. Few do: a list's k-th rises fast, k (1 + ln(rows / k)) of a
+// tile's rows a query in a random order. Tiles are equal contiguous runs of
+// the real entries (the device count total, read by the kernel), one block
+// each, one wave over the SMs; the [n_q, tiles, k] lists are ~160 KB at the
+// serve shape and one stable top-k over them (ops/ivf_pack.py) finishes the
+// select.
+//
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // and loaded with ctypes (densephrases_tpu_torch/utils/cuda_build.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
+#include <cmath>
 
 #include "attention_tiles.cuh"  // mma_bf16, ldsm_x4, cp_async16
 #include "ivf_tiles.cuh"
@@ -66,6 +90,8 @@ using ivf::kRB;
 constexpr int kThreads8 = 1024;  // 8-bit: 32 warps, one row a thread
 constexpr int kThreads4 = 512;   // 4-bit: 16 warps, 32 rows a warp
 constexpr int kPad4 = 8;         // bf16 of padding per query row (4-bit)
+constexpr int kMaxK = 64;        // fused select: two list slots a lane
+constexpr unsigned kAll = 0xffffffffu;
 
 // ------------------------------------------------------------------ 8-bit
 // Two bf16 (the halves of w, the first in the low half) added in fp32.
@@ -147,6 +173,26 @@ __device__ void load_lut_query_minor(bf16* lut_s, const bf16* lut, int q0,
   }
 }
 
+// acc[0:BQ] = the ADC sums of one code row of m bytes (m / VEC chunks)
+// against the block's BQ query-minor LUTs, each chunk's gathers behind the
+// next chunk's load.
+template <int BQ, int VEC>
+__device__ __forceinline__ void adc_row(float (&acc)[BQ], const bf16* lut_s,
+                                        const uint8_t* row, int chunks) {
+#pragma unroll
+  for (int qb = 0; qb < BQ; ++qb) acc[qb] = 0.f;
+  ivf::Chunk<VEC> cur = ivf::load_chunk<VEC>(row);
+  for (int c = 0; c < chunks; ++c) {
+    ivf::Chunk<VEC> nxt = ivf::zero_chunk<VEC>();
+    if (c + 1 < chunks) nxt = ivf::load_chunk<VEC>(row + (c + 1) * VEC);
+    const int base = c * VEC * 256;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      gather_add<BQ>(acc, lut_s, base + i * 256 + ivf::chunk_byte(cur, i));
+    cur = nxt;
+  }
+}
+
 template <int BQ, int VEC>
 __global__ void __launch_bounds__(kThreads8, 1)
     pq_scan8(const bf16* __restrict__ lut, const uint8_t* __restrict__ codes,
@@ -164,25 +210,213 @@ __global__ void __launch_bounds__(kThreads8, 1)
   for (int e = blockIdx.x * kWarps + warp; e < n_entries;
        e += gridDim.x * kWarps) {
     if (ivf::junk_tile(blk, e, pad_blk)) break;
-    const uint8_t* row =
-        codes + static_cast<size_t>(ivf::entry_row0(blk, e, pad_blk) + lane) * m;
     float acc[BQ];
-#pragma unroll
-    for (int qb = 0; qb < BQ; ++qb) acc[qb] = 0.f;
-    ivf::Chunk<VEC> cur = ivf::load_chunk<VEC>(row);
-    for (int c = 0; c < chunks; ++c) {
-      ivf::Chunk<VEC> nxt = ivf::zero_chunk<VEC>();
-      if (c + 1 < chunks) nxt = ivf::load_chunk<VEC>(row + (c + 1) * VEC);
-      const int base = c * VEC * 256;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        gather_add<BQ>(acc, lut_s, base + i * 256 + ivf::chunk_byte(cur, i));
-      cur = nxt;
-    }
+    adc_row<BQ, VEC>(
+        acc, lut_s,
+        codes + static_cast<size_t>(ivf::entry_row0(blk, e, pad_blk) + lane) * m,
+        chunks);
     const size_t col = static_cast<size_t>(e) * kRB + lane;
 #pragma unroll
     for (int qb = 0; qb < BQ; ++qb)
       if (q0 + qb < n_q) out[static_cast<size_t>(q0 + qb) * n_cols + col] = acc[qb];
+  }
+}
+
+// ------------------------------------------------- 8-bit, fused select
+// A block's lists in shared memory: for each of its BQ queries the k best
+// (score, packed column) pairs of its tile so far, best first, and the k-th
+// pair packed in one 64-bit word (score bits low, column high), so a warp
+// reads it whole without the lock.
+struct Lists {
+  float* v;                 // [BQ][k] scores (-inf: an empty slot)
+  int* col;                 // [BQ][k] their packed columns (INT_MAX: empty)
+  unsigned long long* kth;  // [BQ] the k-th pair
+  int* lock;                // [BQ] 1 while a warp holds the query's list
+};
+
+__device__ __forceinline__ unsigned long long pack_pair(float v, int c) {
+  return static_cast<unsigned long long>(__float_as_uint(v)) |
+         (static_cast<unsigned long long>(static_cast<uint32_t>(c)) << 32);
+}
+
+// (s, c) ranks above (v, i): a higher score, or the same and a lower
+// column; ops/topk.topk's order over the packed columns.
+__device__ __forceinline__ bool beats(float s, int c, float v, int i) {
+  return s > v || (s == v && c < i);
+}
+
+// Under query qi's lock, the warp inserts the pairs (s, c) of the lanes
+// with hit set that rank above the list's k-th, one at a time. The list
+// sits in registers two slots a lane (slot j: set j / 32, lane j % 32); a
+// ballot finds a pair's place and shuffles shift the slots behind it. All
+// 32 lanes call.
+__device__ __noinline__ void insert(Lists L, int qi, int k, float s, int c,
+                                    bool hit) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0)
+    while (atomicCAS(L.lock + qi, 0, 1) != 0) __nanosleep(64);
+  __syncwarp();
+  __threadfence_block();
+  volatile float* lv = L.v + qi * k;
+  volatile int* lc = L.col + qi * k;
+  const bool two = k > 32;
+  const int kl = (k - 1) & 31;  // the k-th slot's lane
+  float v0 = -INFINITY, v1 = -INFINITY;
+  int i0 = INT_MAX, i1 = INT_MAX;
+  if (lane < k) {
+    v0 = lv[lane];
+    i0 = lc[lane];
+  }
+  if (lane + 32 < k) {
+    v1 = lv[lane + 32];
+    i1 = lc[lane + 32];
+  }
+  float kv = __shfl_sync(kAll, two ? v1 : v0, kl);
+  int ki = __shfl_sync(kAll, two ? i1 : i0, kl);
+  bool pend = hit && beats(s, c, kv, ki);
+  const bool changed = __any_sync(kAll, pend);
+  for (;;) {
+    const unsigned b = __ballot_sync(kAll, pend);
+    if (b == 0) break;
+    const int src = __ffs(b) - 1;
+    const float ps = __shfl_sync(kAll, s, src);
+    const int pc = __shfl_sync(kAll, c, src);
+    if (lane == src) pend = false;
+    // the pair ranks above the k-th, so it takes the first slot it beats
+    const unsigned b0 = __ballot_sync(kAll, lane < k && beats(ps, pc, v0, i0));
+    int pos = __ffs(b0) - 1;
+    if (two) {
+      const unsigned b1 =
+          __ballot_sync(kAll, lane + 32 < k && beats(ps, pc, v1, i1));
+      if (b0 == 0) pos = 32 + __ffs(b1) - 1;
+      float pv1 = __shfl_up_sync(kAll, v1, 1);
+      int pi1 = __shfl_up_sync(kAll, i1, 1);
+      const float t = __shfl_sync(kAll, v0, 31);  // slot 31 moves to 32
+      const int ti = __shfl_sync(kAll, i0, 31);
+      if (lane == 0) {
+        pv1 = t;
+        pi1 = ti;
+      }
+      if (lane + 32 == pos) {
+        v1 = ps;
+        i1 = pc;
+      } else if (lane + 32 > pos) {
+        v1 = pv1;
+        i1 = pi1;
+      }
+    }
+    const float pv0 = __shfl_up_sync(kAll, v0, 1);
+    const int pi0 = __shfl_up_sync(kAll, i0, 1);
+    if (lane == pos) {
+      v0 = ps;
+      i0 = pc;
+    } else if (lane > pos) {
+      v0 = pv0;
+      i0 = pi0;
+    }
+    kv = __shfl_sync(kAll, two ? v1 : v0, kl);
+    ki = __shfl_sync(kAll, two ? i1 : i0, kl);
+    if (pend && !beats(s, c, kv, ki)) pend = false;
+  }
+  if (changed) {
+    if (lane < k) {
+      lv[lane] = v0;
+      lc[lane] = i0;
+    }
+    if (lane + 32 < k) {
+      lv[lane + 32] = v1;
+      lc[lane + 32] = i1;
+    }
+    if (lane == 0)
+      static_cast<volatile unsigned long long*>(L.kth)[qi] = pack_pair(kv, ki);
+  }
+  __threadfence_block();
+  __syncwarp();
+  if (lane == 0) atomicExch(L.lock + qi, 0);
+}
+
+// Kernel D's 8-bit path with the select in its epilogue. Block (x, y) is
+// tile x of query group y: an equal share of the batch's real entries
+// (those before *total), a contiguous run, so the tiles follow the packed
+// columns in order. Its 32 warps walk the run an entry at a time; a lane
+// scores its row as pq_scan8 does, then adds each query's residual base
+// base[q, row_list[row]] (when base is given) and offers the score to the
+// query's list if its row is real (< n_real) and it ranks above the list's
+// k-th as last read. Only the lists are written: out_v / out_c [n_q, tiles,
+// k], best first; empty slots -inf and -1.
+template <int BQ, int VEC>
+__global__ void __launch_bounds__(kThreads8, 1)
+    pq_scan8_topk(const bf16* __restrict__ lut,
+                  const uint8_t* __restrict__ codes,
+                  const int* __restrict__ blk,
+                  const long long* __restrict__ total_p,
+                  const float* __restrict__ base,
+                  const int* __restrict__ row_list, float* __restrict__ out_v,
+                  int* __restrict__ out_c, int n_q, int m, int pad_blk,
+                  int budget, int n_real, int base_stride, int k, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* lut_s = reinterpret_cast<bf16*>(smem);
+  float* f = reinterpret_cast<float*>(smem + static_cast<size_t>(BQ) * m *
+                                                 256 * sizeof(bf16));
+  const Lists L{f, reinterpret_cast<int*>(f + BQ * k),
+                reinterpret_cast<unsigned long long*>(f + 2 * BQ * k),
+                reinterpret_cast<int*>(f + 2 * BQ * k + 2 * BQ)};
+  const int q0 = blockIdx.y * BQ;
+  const int nq = min(BQ, n_q - q0);
+  load_lut_query_minor<BQ>(lut_s, lut, q0, n_q, m);
+  for (int i = threadIdx.x; i < BQ * k; i += blockDim.x) {
+    L.v[i] = -INFINITY;
+    L.col[i] = INT_MAX;
+  }
+  for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
+    L.kth[i] = pack_pair(-INFINITY, INT_MAX);
+    L.lock[i] = 0;
+  }
+  __syncthreads();
+
+  constexpr int kWarps = kThreads8 / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunks = m / VEC;
+  const int total = static_cast<int>(
+      min(max(__ldg(total_p), 0LL), static_cast<long long>(budget)));
+  const int per = (total + tiles - 1) / tiles;
+  const int e1 = min(total, (blockIdx.x + 1) * per);
+  for (int e = blockIdx.x * per + warp; e < e1; e += kWarps) {
+    const int row = ivf::entry_row0(blk, e, pad_blk) + lane;
+    float b[BQ];
+#pragma unroll
+    for (int qb = 0; qb < BQ; ++qb) b[qb] = 0.f;
+    if (base != nullptr) {
+      const float* bl = base + __ldg(row_list + row);
+#pragma unroll
+      for (int qb = 0; qb < BQ; ++qb)
+        if (qb < nq)
+          b[qb] = __ldg(bl + static_cast<size_t>(q0 + qb) * base_stride);
+    }
+    float acc[BQ];
+    adc_row<BQ, VEC>(acc, lut_s, codes + static_cast<size_t>(row) * m,
+                     chunks);
+    const bool real = row < n_real;
+    const int col = e * kRB + lane;
+#pragma unroll
+    for (int qb = 0; qb < BQ; ++qb) {
+      if (qb >= nq) break;
+      const float s = base != nullptr ? acc[qb] + b[qb] : acc[qb];
+      const unsigned long long kp =
+          static_cast<const volatile unsigned long long*>(L.kth)[qb];
+      const bool hit =
+          real && beats(s, col, __uint_as_float(static_cast<uint32_t>(kp)),
+                        static_cast<int>(kp >> 32));
+      if (__any_sync(kAll, hit)) insert(L, qb, k, s, col, hit);
+    }
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < nq * k; i += blockDim.x) {
+    const size_t o =
+        (static_cast<size_t>(q0 + i / k) * tiles + blockIdx.x) * k + i % k;
+    out_v[o] = L.v[i];
+    out_c[o] = L.col[i] == INT_MAX ? -1 : L.col[i];
   }
 }
 
@@ -349,6 +583,47 @@ int dispatch(int bq, int ksub, const void* lut, const void* codes,
   }
 }
 
+template <typename Kernel>
+int launch_topk(Kernel kernel, size_t smem, int bq, const void* lut,
+                const void* codes, const int* blk, const long long* total,
+                const float* base, const int* row_list, float* out_v,
+                int* out_c, int n_q, int m, int budget, int n_rows,
+                int n_real, int base_stride, int k, int tiles,
+                cudaStream_t stream) {
+  cudaError_t err = ivf::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups = (n_q + bq - 1) / bq;
+  kernel<<<dim3(tiles, groups), kThreads8, smem, stream>>>(
+      static_cast<const bf16*>(lut), static_cast<const uint8_t*>(codes), blk,
+      total, base, row_list, out_v, out_c, n_q, m, n_rows / kRB - 1, budget,
+      n_real, base_stride, k, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC>
+int dispatch_topk(int bq, const void* lut, const void* codes, const int* blk,
+                  const long long* total, const float* base,
+                  const int* row_list, float* out_v, int* out_c, int n_q,
+                  int m, int budget, int n_rows, int n_real, int base_stride,
+                  int k, int tiles, cudaStream_t s) {
+  // the LUTs, then each query's list, k-th pair and lock
+  const size_t smem = static_cast<size_t>(bq) *
+                      (static_cast<size_t>(m) * 256 * 2 + 8 * k + 12);
+  if (smem > ivf::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+#define DPH_D(BQ)                                                          \
+  return launch_topk(pq_scan8_topk<BQ, VEC>, smem, bq, lut, codes, blk,    \
+                     total, base, row_list, out_v, out_c, n_q, m, budget,  \
+                     n_rows, n_real, base_stride, k, tiles, s)
+  switch (bq) {
+    case 1: DPH_D(1);
+    case 2: DPH_D(2);
+    case 4: DPH_D(4);
+    case 8: DPH_D(8);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DPH_D
+}
+
 }  // namespace
 
 // Returns a CUDA error code (0 = launched). The caller checks devices,
@@ -374,4 +649,38 @@ extern "C" int dph_pq_pack_score(const void* lut, const void* codes,
     case 1: return dispatch<1>(bq, ksub, lut, codes, blk, out, n_q, m, budget, n_rows, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Kernel D's 8-bit path with the select fused (pq_scan8_topk). lut, codes,
+// blk, bq and vec as for dph_pq_pack_score with ksub 256 (bq from
+// ops/ivf_pack.py:pq_topk_plan, which counts the lists' shared memory);
+// total: the device int64 count of the table's real entries; base
+// (optional, with row_list): [n_q, base_stride] fp32 residual bases by
+// list, row_list [n_rows] int32 each code row's list; out_v / out_c: [n_q,
+// tiles, k] fp32 and int32. Returns a CUDA error code (0 = launched);
+// nothing is synchronised.
+extern "C" int dph_pq_scan_topk(const void* lut, const void* codes,
+                                const int* blk, const long long* total,
+                                const float* base, const int* row_list,
+                                float* out_v, int* out_c, int n_q, int m,
+                                int budget, int n_rows, int n_real,
+                                int base_stride, int k, int tiles, int bq,
+                                int vec, void* stream) {
+  if (n_q <= 0 || m <= 0 || budget <= 0 || budget % ivf::kTPB ||
+      n_rows < kRB || n_rows % kRB || k < 1 || k > kMaxK || tiles < 1 ||
+      vec <= 0 || m % vec || (base == nullptr) != (row_list == nullptr) ||
+      (base != nullptr && base_stride <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DPH_V(V)                                                          \
+  return dispatch_topk<V>(bq, lut, codes, blk, total, base, row_list,     \
+                          out_v, out_c, n_q, m, budget, n_rows, n_real,   \
+                          base_stride, k, tiles, s)
+  switch (vec) {
+    case 16: DPH_V(16);
+    case 4: DPH_V(4);
+    case 1: DPH_V(1);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DPH_V
 }

@@ -72,6 +72,7 @@ from densephrases_tpu_torch.ops.ivf_pack import (
     packed_pq_scan,
     packed_union_scan,
     probe,
+    row_lists,
 )
 from densephrases_tpu_torch.ops.kmeans import (
     _bf16,
@@ -489,6 +490,10 @@ class IVFIndex:
         # attribute and must not inherit the class default (True)
         self.pq_residual = (pq is not None
                             and bool(cfg.__dict__.get("pq_residual", False)))
+        # each code row's list, whose centroid is its residual base
+        self.row_list = (row_lists(self.list_offsets, self.codes.shape[0],
+                                   self.centroids.shape[0])
+                         if self.pq_residual else None)
         # host references, so save() writes from host memory; padded codes
         # are written from the device
         self._host_arrays = ({"refine": refine_codes}
@@ -902,7 +907,7 @@ class IVFIndex:
                 self.row_perm, self.pq_books, self.refine_codes, self.offset,
                 self.scale, top_k=top_k, nprobe=nprobe, cap=self.cap,
                 budget=budget, n_real=self.n_real, scan_k=scan_k,
-                pq_residual=self.pq_residual)
+                pq_residual=self.pq_residual, row_list=self.row_list)
         return self._finish(vals, ids, top_k, as_numpy)
 
     def search(self, queries, top_k: int = 10, nprobe: int = 64,

@@ -36,6 +36,7 @@ from densephrases_tpu_torch.ops.ivf_pack import (
     pack_budget_table,
     packed_pq_scan,
     packed_union_scan,
+    row_lists,
 )
 from densephrases_tpu_torch.ops.quant import DEFAULT_OFFSET, DEFAULT_SCALE
 from densephrases_tpu_torch.ops.topk import topk_merge
@@ -191,6 +192,9 @@ class MeshShardedIVF:
         self.pq = sub.pq  # the host codebook object (None for SQ)
         self.refine_codes = (None if sub.refine_codes is None
                              else pad(sub.refine_codes, refine_rows))
+        self.row_list = (row_lists(self.list_offsets, self.codes.shape[0],
+                                   self.centroids.shape[0])
+                         if self.pq_residual else None)
         # the guard block budgets of this shard's own lists
         self._pack_table = pack_budget_table(
             sub.list_offsets.cpu().numpy(), self.cap)
@@ -306,7 +310,8 @@ class MeshShardedIVF:
             q, q_rot, self.centroids, self.list_offsets, self.codes,
             self.row_perm, self.pq_books, self.refine_codes, self.offset,
             self.scale, self.nlist_valid, top_k=k, scan_k=scan_k,
-            pq_residual=self.pq_residual, **common)
+            pq_residual=self.pq_residual, row_list=self.row_list,
+            **common)
 
     def search(self, queries, top_k: int = 10, nprobe: int = 64,
                as_numpy: bool = True):

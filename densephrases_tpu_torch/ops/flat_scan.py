@@ -10,13 +10,12 @@ between them.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
 from densephrases_tpu_torch.ops.ivf_pack import (
-    SMEM_MAX, _check_cuda, _round_up, check_aligned)
+    SMEM_MAX, _check_cuda, _round_up, _sm_count, check_aligned)
 from densephrases_tpu_torch.utils.cuda_build import CudaKernel
 
 FLAT_SCAN_TOPK = CudaKernel(
@@ -60,11 +59,6 @@ def flat_scan_plan(b: int, dim: int, k: int, n_rows: int,
     tile_rows = max(FLAT_TILE_MIN, _round_up(-(-n_rows // slots), 256))
     return FlatScanPlan(nt, bq, groups, stride, bq * per_q, tile_rows,
                         -(-n_rows // tile_rows))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flat_scan_topk(q, codes, qsum, n_valid: int, offset: float,

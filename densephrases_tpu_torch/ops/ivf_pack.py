@@ -18,14 +18,23 @@ all-junk tiles exit at once, and the result does not depend on the tier.
 The scans trace their steps as the spans ``index.ivf.probe``,
 ``index.ivf.block_table``, ``index.ivf.scan``, ``index.ivf.select`` and
 ``index.ivf.refine`` (``utils/profiling.py``); while tracing is on they
-also count their work (``_probe_table``, ``_count_scored``).
+also count their work (``_probe_table``, ``_count_scored``, and
+``index.ivf.kernel_tiles``, the tiles whose lists the fused select's merge
+reads).
 
 Kernels, each with its plain twin in this module:
 
 - C, ``pack_score`` (``csrc/ivf_pack_score.cu``): raw SQ8 / SQ4 scores
   ``bf16(q) · code`` over the rows a block table names;
 - D, ``pq_pack_score`` (``csrc/pq_pack_score.cu``): PQ / OPQ ADC scores
-  ``Σ_m LUT[b, m, code[row, m]]`` from a natural-layout [B, M, ksub] LUT.
+  ``Σ_m LUT[b, m, code[row, m]]`` from a natural-layout [B, M, ksub] LUT;
+- D with the select fused, ``pq_scan_topk`` (the same library's 8-bit
+  path, ``pq_scan8_topk``): the scores finished in the kernel (residual
+  base, mask) and only each tile's exact top-k written; ``merge_pq_tiles``
+  merges the tiles. Its twin is ``pq_pack_score_topk_plain`` (D's twin,
+  then ``pq_select``), and ``pq_fused_route`` says which route a scan
+  takes: the fused one on the card for 8-bit codes and k <= 64, else D's
+  scores and ``pq_select``.
 
 A wrapper takes its plain twin for CPU tensors only; a CUDA tensor goes
 through the kernel or the call raises.
@@ -34,6 +43,7 @@ through the kernel or the call raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -56,6 +66,12 @@ IVF_PACK_SCORE = CudaKernel(
 PQ_PACK_SCORE = CudaKernel(
     "pq_pack_score.cu", "dph_pq_pack_score",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+# kernel D's 8-bit path with the select fused (its own launch count)
+PQ_SCAN_TOPK = CudaKernel(
+    "pq_pack_score.cu", "dph_pq_scan_topk",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+
+PQ_K_MAX = 64  # the fused select's largest k: two list slots a lane
 
 SMEM_MAX = 232448  # a block's shared-memory ceiling on the H100 (227 KB)
 
@@ -177,6 +193,31 @@ def pq_plan(b: int, m: int, ksub: int):
     return bq, bq * per_q
 
 
+def pq_topk_plan(b: int, m: int, k: int, n_sm: int):
+    """The fused select's launch (``pq_scan8_topk``): (bq, smem, groups,
+    tiles). bq as ``pq_plan``'s 8-bit rule, each query's [M][256] LUT now
+    beside its k-slot list, k-th pair and lock; one tile (block) of
+    ``tiles`` per SM and query group, so the grid is one wave."""
+    per_q = m * 256 * 2 + 8 * k + 12
+    if per_q > SMEM_MAX:
+        raise ValueError(f"one query's LUT and top-{k} list ({per_q} bytes) "
+                         f"do not fit in shared memory")
+    bq = 1
+    while bq < 8 and bq < b and 2 * bq * per_q <= SMEM_MAX:
+        bq *= 2
+    groups = -(-b // bq)
+    return bq, bq * per_q, groups, max(1, n_sm // groups)
+
+
+def pq_fused_route(device, ksub: int, k: int) -> bool:
+    """Whether a PQ scan's select runs inside kernel D
+    (``pq_scan_topk``): a CUDA device, 8-bit codes (the 4-bit path's scores
+    sit in ``mma`` fragments) and 1 <= k <= ``PQ_K_MAX``. Otherwise D's
+    scores and ``pq_select`` (the plain twin's on CPU tensors)."""
+    return (torch.device(device).type == "cuda" and ksub == 256
+            and 1 <= k <= PQ_K_MAX)
+
+
 # --------------------------------------------------------------- kernel C
 def pack_score_plain(q_bf, codes, blk, *, sq4: bool):
     """q_bf [B, D] bf16, codes [N_pad, Dc] int8 (SQ4: Dc = D/2 packed
@@ -288,6 +329,133 @@ def pq_pack_score(lut_bf, codes, blk, *, impl: str = "auto", out=None):
     return out
 
 
+# ------------------------------------------------ kernel D's fused select
+def row_lists(list_offsets, n_rows: int, nlist: int):
+    """Each sorted code row's list, [n_rows] int32: the residual base's
+    list of a row, edge rows of a boundary block included (rows past the
+    last list fall to it). An index with residual PQ codes builds it once,
+    where it uploads its codes."""
+    rows = torch.arange(n_rows, device=list_offsets.device)
+    return (torch.searchsorted(list_offsets, rows, right=True) - 1) \
+        .clamp(0, nlist - 1).to(torch.int32)
+
+
+def _valid_count(blk, total, n_real: int):
+    """The batch's valid packed columns (a device count): real slots' rows
+    below n_real. Real slots name increasing blocks, so these columns are
+    exactly the first ones, [0, count)."""
+    real = torch.arange(blk.numel(), device=blk.device) < total
+    rows = (n_real - blk.long() * RB).clamp(0, RB)
+    return torch.where(real, rows, 0).sum()
+
+
+def pq_select(raw, blk, total, *, n_real: int, k: int, cs32=None,
+              row_list=None):
+    """The select after D's scores: raw [B, budget*32] → each row's
+    residual base ``cs32[:, list]`` when cs32 is given (its own list,
+    ``row_list``'s), NEG_INF at invalid columns, the exact top-k → (vals
+    [B, k], packed columns [B, k] int64), ties to the lower column."""
+    src, valid = _valid_rows(blk, total, n_real)
+    s = raw
+    if cs32 is not None:
+        # each row's OWN list: edge rows of a boundary block belong to
+        # the neighbouring list, whose centroid is their residual base
+        s = s + cs32[:, row_list[src].long()]
+    s = torch.where(valid[None, :], s, torch.full_like(s, NEG_INF))
+    return _topk2(s, k)
+
+
+def pq_pack_score_topk_plain(lut_bf, codes, blk, total, *, n_real: int,
+                             k: int, cs32=None, row_list=None):
+    """The fused select's plain twin: D's plain twin, then ``pq_select``.
+    k <= budget*32."""
+    return pq_select(pq_pack_score_plain(lut_bf, codes, blk), blk, total,
+                     n_real=n_real, k=k, cs32=cs32, row_list=row_list)
+
+
+def pq_scan_topk(lut_bf, codes, blk, total, *, n_real: int, k: int,
+                 cs32=None, row_list=None):
+    """Kernel D's 8-bit path with the select fused (``pq_scan8_topk``):
+    each tile's exact top-k of the scores ``pq_select`` ranks, the residual
+    base added and invalid columns dropped in the kernel.
+
+    lut_bf [B, M, 256] bf16, codes [N_pad, M] uint8 and blk as for
+    ``pq_pack_score``; total: the device count of blk's real slots
+    (``block_table``'s); cs32 (optional) [B, nlist] fp32 residual bases,
+    row_list [N_pad] int32 each row's list (``row_lists``). → (scores [B,
+    tiles·k] fp32, packed columns [B, tiles·k] int32, tiles): tile j's k best
+    at j·k .. j·k + k - 1, best first, ties to the lower column, empty slots
+    -inf and -1; tiles follow the columns in order, so one stable top-k over
+    them (``merge_pq_tiles``) keeps the lower column on ties. CUDA tensors
+    only; launches on the current stream without synchronising."""
+    if lut_bf.dim() != 3 or lut_bf.dtype != torch.bfloat16 \
+            or lut_bf.shape[2] != 256:
+        raise ValueError(f"lut must be bf16 [B, M, 256], got {lut_bf.dtype} "
+                         f"{tuple(lut_bf.shape)}")
+    b, m, _ = lut_bf.shape
+    if codes.dtype != torch.uint8 or codes.dim() != 2 or codes.shape[1] != m:
+        raise ValueError(f"codes must be uint8 [N_pad, {m}], got "
+                         f"{codes.dtype} {tuple(codes.shape)}")
+    _check_table(codes, blk, b)
+    if total.dtype != torch.int64 or total.numel() != 1:
+        raise ValueError(f"total must be one int64, got {total.dtype} "
+                         f"{tuple(total.shape)}")
+    if not 1 <= k <= PQ_K_MAX:
+        raise ValueError(f"k={k} outside 1..{PQ_K_MAX}")
+    if (cs32 is None) != (row_list is None):
+        raise ValueError("cs32 and row_list go together")
+    base = rl = None
+    if cs32 is not None:
+        if cs32.dtype != torch.float32 or cs32.dim() != 2 \
+                or cs32.shape[0] != b or not cs32.is_contiguous():
+            raise ValueError(f"cs32 must be contiguous fp32 [{b}, nlist], "
+                             f"got {cs32.dtype} {tuple(cs32.shape)}")
+        if row_list.dtype != torch.int32 or not row_list.is_contiguous() \
+                or tuple(row_list.shape) != (codes.shape[0],):
+            raise ValueError(f"row_list must be contiguous int32 "
+                             f"[{codes.shape[0]}], got {row_list.dtype} "
+                             f"{tuple(row_list.shape)}")
+        base, rl = cs32.data_ptr(), row_list.data_ptr()
+    if not (lut_bf.is_contiguous() and codes.is_contiguous()
+            and blk.is_contiguous()):
+        raise ValueError("lut, codes and blk must be contiguous")
+    _check_cuda(lut_bf, codes, blk, total,
+                *(() if cs32 is None else (cs32, row_list)))
+    check_aligned(lut_bf.data_ptr(), 16, "lut")
+    vec = load_width(m, codes.data_ptr(), (16, 4, 1))
+    bq, _, _, tiles = pq_topk_plan(b, m, k, _sm_count(codes.device))
+    vals = torch.empty((b, tiles * k), dtype=torch.float32,
+                       device=codes.device)
+    cols = torch.empty((b, tiles * k), dtype=torch.int32,
+                       device=codes.device)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        PQ_SCAN_TOPK.launch(
+            lut_bf.data_ptr(), codes.data_ptr(), blk.data_ptr(),
+            total.data_ptr(), base, rl, vals.data_ptr(), cols.data_ptr(), b,
+            m, blk.numel(), codes.shape[0], n_real,
+            0 if cs32 is None else cs32.shape[1], k, tiles, bq, vec, stream)
+    return vals, cols, tiles
+
+
+def merge_pq_tiles(vals, cols, n_valid, k: int):
+    """``pq_scan_topk``'s tile lists → (vals [B, k], packed columns [B, k]
+    int64), as ``pq_select`` gives them: one stable top-k over the lists,
+    then, where fewer than k columns are valid (n_valid: ``_valid_count``),
+    the first invalid columns at NEG_INF in column order, as the twin's
+    masked sort leaves them."""
+    b = vals.shape[0]
+    fill = n_valid + torch.arange(k, device=vals.device)
+    v, pos = _top_k(torch.cat([vals, vals.new_full((b, k), NEG_INF)], 1), k)
+    return v, torch.gather(torch.cat([cols.long(), fill.expand(b, k)], 1), 1,
+                           pos)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 # ------------------------------------------------------------ the scans
 def _topk2(s, k: int):
     """Exact two-stage top-k over wide score rows, ties to the lower index:
@@ -381,11 +549,11 @@ def _probe_table(q_raw, centroids, list_offsets, nlist_valid, *,
                            pad_blk=pad_blk, budget=budget)
 
 
-def _count_scored(valid, rows: int):
+def _count_scored(n_valid, rows: int):
     """While tracing is on, ``index.ivf.rows_scored``: query rows × valid
-    packed columns, as a deferred device sum."""
+    packed columns (a device count), as a deferred device product."""
     if profiling.active():
-        profiling.count("index.ivf.rows_scored", valid.sum() * rows)
+        profiling.count("index.ivf.rows_scored", n_valid * rows)
 
 
 def _valid_rows(blk, total, n_real: int):
@@ -426,7 +594,7 @@ def packed_union_scan(q_raw, centroids, list_offsets, codes, row_perm,
                         torch.full_like(raw, NEG_INF))
         vals, pos = _topk2(s, min(top_k, s.shape[1]))
         gids = row_perm[src[pos].clamp(0, row_perm.shape[0] - 1)]
-    _count_scored(valid, q_raw.shape[0])
+    _count_scored(valid.sum(), q_raw.shape[0])
     return vals, gids
 
 
@@ -446,34 +614,45 @@ def refine_int8(q_raw, vals, gids, refine_codes, offset: float, scale: float,
 def packed_pq_scan(q_raw, q_rot, centroids, list_offsets, codes, row_perm,
                    pq_books, refine_codes, offset, scale, nlist_valid=None,
                    *, top_k: int, nprobe: int, cap: int, budget: int,
-                   n_real: int, scan_k: int, pq_residual: bool = False):
+                   n_real: int, scan_k: int, pq_residual: bool = False,
+                   row_list=None):
     """PQ / OPQ IVF search (kernel D): probe → block table → ADC scores →
     the residual ``q·c`` of each row's own list → exact top-scan_k →
     optional int8 refine. q_rot: the queries in code space (OPQ: q @ R).
-    nlist_valid: as in ``packed_union_scan``.
-    Returns (vals [B, K] f32, gids [B, K] int32)."""
-    nlist = centroids.shape[0]
+    nlist_valid: as in ``packed_union_scan``. row_list: ``row_lists`` of
+    the codes, which the residual base reads (needed with pq_residual).
+    Where ``pq_fused_route`` says so, the select runs in D's epilogue
+    (``pq_scan_topk``, then ``merge_pq_tiles``; counter
+    ``index.ivf.kernel_tiles``). Returns (vals [B, K] f32, gids [B, K]
+    int32)."""
+    if pq_residual and row_list is None:
+        raise ValueError("residual PQ codes need their row_list")
     blk, total = _probe_table(q_raw, centroids, list_offsets, nlist_valid,
                               nprobe=nprobe, cap=cap,
                               pad_blk=codes.shape[0] // RB - 1,
                               budget=budget)
+    k = min(scan_k, blk.numel() * RB)
+    fused = pq_fused_route(codes.device, pq_books.shape[1], k)
     with profiling.span("index.ivf.scan"):
         lut = pq_lut(pq_books, q_rot).to(torch.bfloat16).contiguous()
-        raw = pq_pack_score(lut, codes, blk)
+        cs32 = q_raw @ centroids.T if pq_residual else None
+        if fused:
+            lists = pq_scan_topk(lut, codes, blk, total, n_real=n_real, k=k,
+                                 cs32=cs32,
+                                 row_list=row_list if pq_residual else None)
+        else:
+            raw = pq_pack_score(lut, codes, blk)
     with profiling.span("index.ivf.select"):
-        src, valid = _valid_rows(blk, total, n_real)
-        s = raw
-        if pq_residual:
-            # each row's OWN list: edge rows of a boundary block belong to
-            # the neighbouring list, whose centroid is their residual base
-            cs32 = q_raw @ centroids.T
-            rlist = (torch.searchsorted(list_offsets, src, right=True) - 1) \
-                .clamp(0, nlist - 1)
-            s = s + cs32[:, rlist]
-        s = torch.where(valid[None, :], s, torch.full_like(s, NEG_INF))
-        vals, pos = _topk2(s, min(scan_k, s.shape[1]))
-        gids = row_perm[src[pos].clamp(0, row_perm.shape[0] - 1)]
-    _count_scored(valid, q_raw.shape[0])
+        n_valid = _valid_count(blk, total, n_real)
+        if fused:
+            vals, cols = merge_pq_tiles(*lists[:2], n_valid, k)
+            profiling.count("index.ivf.kernel_tiles", lists[2])
+        else:
+            vals, cols = pq_select(raw, blk, total, n_real=n_real, k=k,
+                                   cs32=cs32, row_list=row_list)
+        src = blk.long()[cols // RB] * RB + cols % RB
+        gids = row_perm[src.clamp(0, row_perm.shape[0] - 1)]
+    _count_scored(n_valid, q_raw.shape[0])
     if refine_codes is not None:
         profiling.count("index.ivf.candidates_refined", gids.numel())
         with profiling.span("index.ivf.refine"):

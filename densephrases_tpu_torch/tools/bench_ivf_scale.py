@@ -327,52 +327,67 @@ def kernel_rows(ivf, queries: np.ndarray, probes, *, device="cuda",
     """Each probe's list-scan kernel alone on the batch's own inputs:
     {"p<nprobe>": {kernel, launches, ms, plain_ms, scan_ms, share_of_scan,
     bound_ms, bound_by, rows}}. The kernel's inputs are those one
-    ``search`` hands it; ``ms`` is its CUDA-event time on them,
+    ``search`` hands it: C (``pack_score``), D's scores (``pq_pack_score``)
+    or, where ``packed_pq_scan`` fuses the select, D with it
+    (``pq_scan_topk``); ``ms`` is its CUDA-event time on them,
     ``plain_ms`` its plain twin's (None where the twin does not fit the
     card), ``scan_ms`` that of the whole
     ``search``; ``launches`` counts its launches in that one search. The
     bound counts the valid rows' codes, the queries or LUTs, the block
-    table and the fp32 scores of the valid columns. Timing launches leave
-    the counters as they were."""
+    table and the fp32 scores of the valid columns (none for the fused
+    select, which writes only its lists). Timing launches leave the
+    counters as they were."""
     from densephrases_tpu_torch.ops import ivf_pack as pack
 
     pq = ivf.pq_books is not None
-    name = "pq_pack_score" if pq else "pack_score"
-    kernel = pack.PQ_PACK_SCORE if pq else pack.IVF_PACK_SCORE
-    real_fn, real_bt = getattr(pack, name), pack.block_table
+    kernels = ({"pq_pack_score": pack.PQ_PACK_SCORE,
+                "pq_scan_topk": pack.PQ_SCAN_TOPK} if pq
+               else {"pack_score": pack.IVF_PACK_SCORE})
+    names = tuple(kernels)
+    real, real_bt = {n: getattr(pack, n) for n in names}, pack.block_table
     q = torch.as_tensor(queries, dtype=torch.float32, device=ivf.device)
     b = int(q.shape[0])
     out = {}
     for nprobe in probes:
         seen = {}
 
-        def spy(*a, **kw):
-            seen["args"] = (a, kw)
-            return real_fn(*a, **kw)
+        def spy_of(name):
+            def spy(*a, **kw):
+                seen["call"] = (name, a, kw)
+                return real[name](*a, **kw)
+            return spy
 
         def spy_bt(*a, **kw):
             blk, total = real_bt(*a, **kw)
             seen["total"] = total
             return blk, total
 
-        setattr(pack, name, spy)
+        for n in names:
+            setattr(pack, n, spy_of(n))
         pack.block_table = spy_bt
         try:
-            before = kernel.launches
+            before = {n: k.launches for n, k in kernels.items()}
             ivf.search(q, top_k=top_k, nprobe=nprobe, as_numpy=False)
             _bench.sync(device)
-            launches = kernel.launches - before
         finally:
-            setattr(pack, name, real_fn)
+            for n in names:
+                setattr(pack, n, real[n])
             pack.block_table = real_bt
-        a, kw = seen["args"]
-        with _bench.uncounted(kernel):
-            ms = _bench.device_ms(lambda: real_fn(*a, **kw), device,
+        name, a, kw = seen["call"]
+        launches = kernels[name].launches - before[name]
+        fused = name == "pq_scan_topk"
+        if fused:  # its twin: D's, the residual, the mask and the sort
+            plain = lambda: pack.pq_pack_score_topk_plain(  # noqa: E731
+                *a[:4], n_real=kw["n_real"], k=kw["k"], cs32=kw["cs32"],
+                row_list=ivf.row_list)
+        else:
+            plain = lambda: real[name](  # noqa: E731
+                *a, **{**kw, "impl": "plain"})
+        with _bench.uncounted(*kernels.values()):
+            ms = _bench.device_ms(lambda: real[name](*a, **kw), device,
                                   iters=iters)
             try:
-                plain_ms = _bench.device_ms(
-                    lambda: real_fn(*a, **{**kw, "impl": "plain"}), device,
-                    iters=iters)
+                plain_ms = _bench.device_ms(plain, device, iters=iters)
             except torch.OutOfMemoryError:  # the twin gathers whole tiles
                 plain_ms = None
                 torch.cuda.empty_cache()
@@ -387,10 +402,10 @@ def kernel_rows(ivf, queries: np.ndarray, probes, *, device="cuda",
         else:
             ops, kind = 2 * b * valid * ivf.centroids.shape[1], "bfloat16"
         nbytes = (valid * row_bytes + src.numel() * src.element_size()
-                  + 4 * blk.numel() + 4 * b * valid)
+                  + 4 * blk.numel() + (0 if fused else 4 * b * valid))
         bound_ms, bound_by = _bench.bound(ops, nbytes, kind)
         out[f"p{nprobe}"] = {
-            "kernel": "pq_pack_score" if pq else "ivf_pack_score",
+            "kernel": {"pack_score": "ivf_pack_score"}.get(name, name),
             "batch": b, "rows": valid, "launches": launches, "ms": ms,
             "plain_ms": plain_ms, "scan_ms": scan_ms,
             "share_of_scan": ms / scan_ms,

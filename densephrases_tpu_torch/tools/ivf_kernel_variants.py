@@ -71,34 +71,44 @@ D_THREADS4 = "constexpr int kThreads4 = 512;"
 # the 8-bit path's vector gathers for 4-bit codes: a [M][16][8] query-minor
 # LUT, launched for bq == 8
 D_GATHER4 = [
-    ("template <int BQ, int VEC>\n__global__ void __launch_bounds__(kThreads8",
+    ("template <int BQ, int VEC>\n__device__ __forceinline__ void adc_row(",
      "template <int BQ, int VEC, int KSUB = 256>\n"
-     "__global__ void __launch_bounds__(kThreads8"),
-    ("  load_lut_query_minor<BQ>(lut_s, lut, q0, n_q, m);",
-     "  load_lut_query_minor<BQ, KSUB>(lut_s, lut, q0, n_q, m);"),
+     "__device__ __forceinline__ void adc_row("),
+    ("template <int BQ, int VEC>\n__global__ void __launch_bounds__(kThreads8, "
+     "1)\n    pq_scan8(",
+     "template <int BQ, int VEC, int KSUB = 256>\n"
+     "__global__ void __launch_bounds__(kThreads8, 1)\n    pq_scan8("),
+    ("  load_lut_query_minor<BQ>(lut_s, lut, q0, n_q, m);\n  __syncthreads();",
+     "  load_lut_query_minor<BQ, KSUB>(lut_s, lut, q0, n_q, m);\n"
+     "  __syncthreads();"),
     ("template <int BQ>\n__device__ void load_lut_query_minor",
-     "template <int BQ, int KSUB>\n__device__ void load_lut_query_minor"),
+     "template <int BQ, int KSUB = 256>\n"
+     "__device__ void load_lut_query_minor"),
     ("  const int runs = m * 256 / 8;", "  const int runs = m * KSUB / 8;"),
     ("lut + static_cast<size_t>(q0 + qb) * m * 256) +",
      "lut + static_cast<size_t>(q0 + qb) * m * KSUB) +"),
     ("  const int chunks = m / VEC;  // code_bytes == m, a multiple of VEC",
      "  const int code_bytes = KSUB == 16 ? m / 2 : m;\n"
      "  const int chunks = code_bytes / VEC;"),
-    ("ivf::entry_row0(blk, e, pad_blk) + lane) * m;",
-     "ivf::entry_row0(blk, e, pad_blk) + lane) * code_bytes;"),
-    ("      const int base = c * VEC * 256;\n#pragma unroll\n"
-     "      for (int i = 0; i < VEC; ++i)\n"
-     "        gather_add<BQ>(acc, lut_s, base + i * 256 + "
+    ("    adc_row<BQ, VEC>(\n        acc, lut_s,\n"
+     "        codes + static_cast<size_t>(ivf::entry_row0(blk, e, pad_blk) + "
+     "lane) * m,",
+     "    adc_row<BQ, VEC, KSUB>(\n        acc, lut_s,\n"
+     "        codes + static_cast<size_t>(ivf::entry_row0(blk, e, pad_blk) + "
+     "lane) * code_bytes,"),
+    ("    const int base = c * VEC * 256;\n#pragma unroll\n"
+     "    for (int i = 0; i < VEC; ++i)\n"
+     "      gather_add<BQ>(acc, lut_s, base + i * 256 + "
      "ivf::chunk_byte(cur, i));",
-     "#pragma unroll\n      for (int i = 0; i < VEC; ++i) {\n"
-     "        const uint32_t byte = ivf::chunk_byte(cur, i);\n"
-     "        if constexpr (KSUB == 16) {\n"
-     "          const int base = 2 * (c * VEC + i) * 16;\n"
-     "          gather_add<BQ>(acc, lut_s, base + (byte & 0xFu));\n"
-     "          gather_add<BQ>(acc, lut_s, base + 16 + (byte >> 4));\n"
-     "        } else {\n"
-     "          gather_add<BQ>(acc, lut_s, (c * VEC + i) * 256 + byte);\n"
-     "        }\n      }"),
+     "#pragma unroll\n    for (int i = 0; i < VEC; ++i) {\n"
+     "      const uint32_t byte = ivf::chunk_byte(cur, i);\n"
+     "      if constexpr (KSUB == 16) {\n"
+     "        const int base = 2 * (c * VEC + i) * 16;\n"
+     "        gather_add<BQ>(acc, lut_s, base + (byte & 0xFu));\n"
+     "        gather_add<BQ>(acc, lut_s, base + 16 + (byte >> 4));\n"
+     "      } else {\n"
+     "        gather_add<BQ>(acc, lut_s, (c * VEC + i) * 256 + byte);\n"
+     "      }\n    }"),
     ("      case 16: return launch(pq_scan4<2, VEC>",
      "      case 8: return launch(pq_scan8<8, VEC, 16>, kThreads8, "
      "static_cast<size_t>(8) * m * 16 * 2, bq, lut, codes, blk, out, n_q, "

@@ -107,6 +107,23 @@ def test_search_matches_reference_on_its_save(ref_saves, name, b):
                       port.search(q, top_k=10, nprobe=nprobe), atol=atol)
 
 
+@pytest.mark.parametrize("name", ["SQ8", "OPQ8", "PQ8-norefine"])
+def test_residual_index_keeps_its_row_lists(ref_saves, name):
+    """From its load on, an index over residual PQ codes holds each padded
+    code row's list (the residual base's), int32, rows past the last list
+    in it; an index without residual codes holds none."""
+    port = IVFIndex.load(ref_saves(name), device="cpu")
+    if not port.pq_residual:
+        assert name == "SQ8" and port.row_list is None
+        return
+    offs = port.list_offsets.numpy()
+    rows = np.arange(port.codes.shape[0])
+    want = np.minimum(np.searchsorted(offs, rows, side="right") - 1,
+                      port.nlist - 1)
+    assert port.row_list.dtype == torch.int32
+    np.testing.assert_array_equal(port.row_list.numpy(), want)
+
+
 def test_union_route_matches_reference_for_one_query(ref_saves):
     # one SQ8 query row takes _probe_score in search(); search_union is the
     # other route, held to the reference's search_union

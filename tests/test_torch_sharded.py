@@ -382,7 +382,8 @@ def test_nlist_valid_masks_padded_centroids(data, fq):
         return ivf_pack.packed_pq_scan(
             q, q @ index.rotation, c, o, index.codes, index.row_perm,
             index.pq_books, index.refine_codes, index.offset, index.scale,
-            nlist_valid, scan_k=40, pq_residual=index.pq_residual, **common)
+            nlist_valid, scan_k=40, pq_residual=index.pq_residual,
+            row_list=index.row_list, **common)
 
     want_v, want_i = scan(index.centroids, index.list_offsets)
     got_v, got_i = scan(cents, offs, nlist)
