@@ -347,10 +347,6 @@ SO_LR = 1e-4  # a constant lr: the first step moves the weights
 SO_LOSS_RTOL, SO_GRAD_NORM_RTOL = 1e-6, 5e-4
 SO_GRAD_COS, SO_NORM_RTOL = 1 - 1e-5, 5e-4
 SO_TOWERS = ("phrase", "query_start", "query_end", "filter")
-# the card's published peaks (NVIDIA H100 SXM data sheet, dense rates at
-# 700 W): a kernel's bound is the larger of the bytes it must move over the
-# memory rate and its operations over the peak rate for their type (bf16
-# products on the tensor cores; fp32 products and adds on the CUDA cores)
 # phase 11: eval_request's synthetic questions at batch DEMO_BATCH, top-k
 # DEMO_TOP_K, 5 warmup batches and DEMO_TIMED_BATCHES timed ones (q/s on
 # the host clock wants a window of seconds, not of a few requests); the
@@ -362,8 +358,6 @@ DEMO_QUESTIONS = DEMO_BATCH * (5 + DEMO_TIMED_BATCHES)
 DEMO_IVF_BATCHES = 8
 DEMO_CLI_TIMEOUT = 300
 DEMO_META_DOCS = 16384
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # phase 14: the benchmark cell mbl-flat-sq8.doc-el8k-b8's attention shape
 # (batch 8, 16 heads, 8,192 tokens, head dim 64, band half-width 64); the
 # band at edge shapes (L < 2w + 1, L not a multiple of 64, w 0, a band
@@ -439,9 +433,10 @@ def cuda_ms(fn, iters=50, warmup=3):
 def bound(ops, nbytes, kind):
     """(bound_ms, bound_by): the least time the card could take for work of
     ``ops`` operations of type ``kind`` that reads and writes ``nbytes``
-    (each input read once, each output written once)."""
-    t_ops, t_bytes = ops / PEAK_OPS_PER_S[kind], nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+    (each input read once, each output written once), against the card's
+    peaks in ``tools/_bench.py``."""
+    from densephrases_tpu_torch.tools import _bench
+    return _bench.bound(ops, nbytes, kind)
 
 
 def attention_bound(shape, dtype, tensors, flops_per_pair):

@@ -10,10 +10,14 @@ stage 2 — ``search_phrase``: for every start hit, score candidate ends within
   ``max_answer_length`` (and symmetrically starts for end hits) on the
   device: a windowed gather of consecutive rows, the int8 dequant, one
   einsum against the query vectors, validity masks from the flat f2o map
-  and the doc bounds, and an argmax (``_rescore_spans``). Its results come
-  to the host in ONE device→host copy (``_pack`` / ``_unpack``).
+  and the doc bounds, and an argmax (``_rescore_spans``). Its results,
+  packed into one buffer (``_pack``), come to the host in ONE device→host
+  copy: ``_send`` starts it into pinned memory without blocking,
+  ``_receive`` waits for it and assembles. ``FusedServer`` calls the two
+  halves apart, to keep batches in flight.
 stage 3 — ``_assemble`` (host): char offsets and result dicts; then
-  ``aggregate_results`` (opt1–opt4) and the context-window adjustments.
+  ``aggregate_results`` (opt1–opt4, ``_aggregate``) and the context-window
+  adjustments.
 
 The rescore reads the int8 corpus in its original row order: an int8 flat
 index shares its padded code buffer, a PQ / OPQ IVF index with an int8
@@ -414,9 +418,9 @@ class MIPS:
     # ---------------- stage 2 ----------------
     def _rescore(self, query, s_gids, e_gids, s_scores, e_scores,
                  max_answer_length: int, return_idxs: bool):
-        """The device rescore as a dict of device tensors: queries rotated
-        by ``R`` (and, in decode mode, into the index's code space), and
-        returned vectors rotated back (ref search.py:405-476)."""
+        """The device rescore and the hit ids as a dict of device tensors:
+        queries rotated by ``R`` (and, in decode mode, into the index's code
+        space), returned vectors rotated back (ref search.py:405-476)."""
         query = torch.as_tensor(query, dtype=torch.float32, device=self.device)
         qs, qe = query.chunk(2, dim=1)
         if self.R is not None:
@@ -439,18 +443,48 @@ class MIPS:
             # serve score (ref: search.py:468-476)
             for key in VEC_KEYS:
                 res[key] = res[key] @ out_rot.T
+        res["s_gids"], res["e_gids"] = s_gids, e_gids
         return res
 
     def rescore(self, query, s_gids, e_gids, s_scores, e_scores,
                 max_answer_length: int = 10, return_idxs: bool = False):
         """Device half of stage 2: the packed (not yet copied) rescore bundle
-        with the hit ids, as ``_pack`` returns it."""
+        with the hit ids, as ``_pack`` returns it, for ``_send``."""
         with profiling.span("index.rescore"):
-            res = self._rescore(query, s_gids, e_gids, s_scores, e_scores,
-                                max_answer_length, return_idxs)
-        res["s_gids"], res["e_gids"] = s_gids, e_gids
+            return _pack(self._rescore(query, s_gids, e_gids, s_scores,
+                                       e_scores, max_answer_length,
+                                       return_idxs))
+
+    def _send(self, buf, layout) -> dict:
+        """Start the ONE device→host copy of a packed bundle, into pinned
+        memory behind this batch's own work only (a copy issued in
+        ``_receive`` would wait for the batches submitted since); on the
+        CPU the buffer itself. Returns the handle ``_receive`` takes."""
+        done = None
         with profiling.span("serve.copy"):
-            return _pack(res)
+            if buf.is_cuda:
+                host = torch.empty(buf.shape, dtype=buf.dtype,
+                                   pin_memory=True)
+                host.copy_(buf, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                buf = host
+        profiling.count("serve.d2h_bytes", buf.numel() * buf.element_size())
+        return {"buf": buf, "done": done, "layout": layout}
+
+    def _receive(self, handle, return_idxs: bool = False,
+                 return_sent: bool = False):
+        """Wait for a ``_send`` handle's copy, the one sync point, then
+        assemble its result dicts on the host."""
+        with profiling.span("serve.wait"):
+            if handle["done"] is not None:
+                handle["done"].synchronize()
+        with profiling.span("index.assemble"):
+            res = _unpack(handle["buf"].numpy(), handle["layout"])
+            s_gids, e_gids = res.pop("s_gids"), res.pop("e_gids")
+            return self._assemble(res, s_gids, e_gids,
+                                  return_idxs=return_idxs,
+                                  return_sent=return_sent)
 
     def search_phrase(self, query, s_gids, e_gids, s_scores, e_scores,
                       max_answer_length: int = 10, return_idxs: bool = False,
@@ -480,19 +514,8 @@ class MIPS:
                     torch.cat([res.pop("end_vec_for_start"),
                                res.pop("end_vec_anchor")], dim=1))
                 return_idxs = False
-        res["s_gids"], res["e_gids"] = s_gids, e_gids
-        with profiling.span("serve.copy"):
-            buf, layout = _pack(res)
-        profiling.count("serve.d2h_bytes", buf.numel() * buf.element_size())
-        with profiling.span("serve.wait"):
-            # ONE device→host copy for everything stage 3 needs
-            host = buf.cpu().numpy()
-        with profiling.span("index.assemble"):
-            res = _unpack(host, layout)
-            s_gids, e_gids = res.pop("s_gids"), res.pop("e_gids")
-            outs = self._assemble(res, s_gids, e_gids,
-                                  return_idxs=return_idxs,
-                                  return_sent=return_sent)
+            bundle = _pack(res)
+        outs = self._receive(self._send(*bundle), return_idxs, return_sent)
         return (outs, dev_vecs) if dev_vecs is not None else outs
 
     def _search_phrase_host(self, query, s_gids, e_gids, s_scores, e_scores,
@@ -660,10 +683,12 @@ class MIPS:
         if vecs_on_device:
             return outs  # (results, (start_vecs, end_vecs)): search_phrase
         if aggregate:
-            q_texts = q_texts if q_texts is not None else [None] * len(outs)
-            with profiling.span("index.aggregate"):
-                outs = [
-                    self.aggregate_results(results, top_k, q_text, agg_strat)
-                    for results, q_text in zip(outs, q_texts)
-                ]
+            outs = self._aggregate(outs, q_texts, top_k, agg_strat)
         return outs
+
+    def _aggregate(self, outs, q_texts, top_k: int, agg_strat: str):
+        """``aggregate_results`` over each query's results."""
+        q_texts = q_texts if q_texts is not None else [None] * len(outs)
+        with profiling.span("index.aggregate"):
+            return [self.aggregate_results(results, top_k, q_text, agg_strat)
+                    for results, q_text in zip(outs, q_texts)]

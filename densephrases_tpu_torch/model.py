@@ -81,6 +81,15 @@ class DensePhrases:
             return embed_query(self.params, ids, am, tt,
                                attn_impl=self.attn_impl)
 
+    def _truecased(self, queries: List[str]) -> List[str]:
+        """Each all-lowercase query truecased (ref: model.py:93-97); the
+        queries as they are without a truecaser. ``search`` and
+        ``FusedServer.submit`` both call it."""
+        if self.truecase is None:
+            return queries
+        return [q if q != q.lower() else self.truecase.get_true_case(q)
+                for q in queries]
+
     # ----- query encoding (ref: open_utils.py:83-101 query2vec) -----
     def query2vec(self, queries: List[str]):
         """[B, 2H] query vectors as a DEVICE tensor."""
@@ -94,11 +103,8 @@ class DensePhrases:
         with profiling.request():
             single = isinstance(query, str)
             queries = [query] if single else list(query)
-            if truecase and self.truecase is not None:
-                queries = [
-                    q if q != q.lower() else self.truecase.get_true_case(q)
-                    for q in queries
-                ]
+            if truecase:
+                queries = self._truecased(queries)
 
             if retrieval_unit not in self.UNIT_TO_STRAT:
                 raise NotImplementedError(f"unknown retrieval unit {retrieval_unit}")

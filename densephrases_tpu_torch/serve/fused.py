@@ -4,9 +4,10 @@ The counterpart of ``densephrases_tpu/serve/fused.py``. ``submit``
 tokenizes on the host and enqueues the whole device path — both query
 towers, the stage-1 int8 scan and the stage-2 span rescore — without
 waiting: CUDA kernels launch asynchronously, which plays the part of JAX's
-async dispatch. ``submit`` also enqueues the one device→host copy of the
-packed result bundle, into pinned memory; ``collect`` is the only sync
-point: it waits for that copy, then assembles on the host. ``search_pipelined``
+async dispatch. ``submit`` also starts the one device→host copy of the
+packed result bundle (``MIPS._send``); ``collect`` is the only sync point:
+it waits for that copy and assembles on the host (``MIPS._receive``), the
+hand-off ``MIPS.search_phrase`` makes in one call. ``search_pipelined``
 keeps ``depth`` batches in flight, so host tokenization and assembly of one
 batch overlap the device work of the next.
 
@@ -23,10 +24,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 from densephrases_tpu_torch.index.flat import FlatIndex
-from densephrases_tpu_torch.index.search import _unpack
 from densephrases_tpu_torch.utils import profiling
 
 
@@ -54,54 +52,27 @@ class FusedServer:
         """Tokenize + enqueue the device path without blocking; pass the
         returned handle to ``collect``."""
         with profiling.request():
-            model = self.model
-            # the truecasing of DensePhrases.search: the fused and modular
-            # paths see the same query text (ref: serve/fused.py:87-93)
-            if truecase and model.truecase is not None:
-                queries = [
-                    q if q != q.lower() else model.truecase.get_true_case(q)
-                    for q in queries
-                ]
-            query = model.query2vec(queries)
+            if truecase:  # the fused and modular paths see the same text
+                queries = self.model._truecased(queries)
+            query = self.model.query2vec(queries)
             hits = self.mips.search_dense(query, top_k=top_k,
                                           chunk=self.chunk)
-            buf, layout = self.mips.rescore(
-                query, *hits, max_answer_length=max_answer_length)
-            done = None
-            if buf.is_cuda:
-                # enqueue this batch's ONE device→host copy now, behind its
-                # own work only: a copy issued in collect() would queue
-                # behind the batches submitted since, and wait for them too
-                with profiling.span("serve.copy"):
-                    host = torch.empty(buf.shape, dtype=buf.dtype,
-                                       pin_memory=True)
-                    host.copy_(buf, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
-                profiling.count("serve.d2h_bytes",
-                                buf.numel() * buf.element_size())
-                buf = host
-            return {"buf": buf, "done": done, "layout": layout,
-                    "queries": queries, "top_k": top_k, "aggregate": aggregate,
-                    "agg_strat": agg_strat, "return_sent": return_sent,
-                    "request": profiling.current_request()}
+            handle = self.mips._send(*self.mips.rescore(
+                query, *hits, max_answer_length=max_answer_length))
+            handle.update(queries=queries, top_k=top_k, aggregate=aggregate,
+                          agg_strat=agg_strat, return_sent=return_sent,
+                          request=profiling.current_request())
+            return handle
 
     def collect(self, handle):
         """Wait for a ``submit`` handle's copy and assemble result dicts."""
         with profiling.request(handle["request"]):
-            with profiling.span("serve.wait"):
-                if handle["done"] is not None:
-                    handle["done"].synchronize()  # the only sync point
-            with profiling.span("index.assemble"):
-                res = _unpack(handle["buf"].numpy(), handle["layout"])
-                s_gids, e_gids = res.pop("s_gids"), res.pop("e_gids")
-                outs = self.mips._assemble(res, s_gids, e_gids,
-                                           return_sent=handle["return_sent"])
+            outs = self.mips._receive(handle,
+                                      return_sent=handle["return_sent"])
             if handle["aggregate"]:
-                with profiling.span("index.aggregate"):
-                    outs = [self.mips.aggregate_results(
-                                r, handle["top_k"], q, handle["agg_strat"])
-                            for r, q in zip(outs, handle["queries"])]
+                outs = self.mips._aggregate(outs, handle["queries"],
+                                            handle["top_k"],
+                                            handle["agg_strat"])
             return outs
 
     def search(self, queries, top_k: int = 10, max_answer_length: int = 10,

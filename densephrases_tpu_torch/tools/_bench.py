@@ -19,7 +19,9 @@ import time
 import numpy as np
 import torch
 
-# the H100's peaks: HBM3 bytes/s and dense tensor-core / CUDA-core ops/s
+# the H100 SXM's published peaks (data sheet, dense rates at 700 W): HBM3
+# bytes/s, and ops/s for bf16 products on the tensor cores and fp32
+# products and adds on the CUDA cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 

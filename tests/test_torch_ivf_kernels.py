@@ -396,19 +396,3 @@ def test_check_aligned():
         tpack.check_aligned(base[3:].data_ptr(), 16, "codes")
     with pytest.raises(ValueError, match="q must be 8-byte aligned"):
         tpack.check_aligned(base[4:].data_ptr(), 8, "q")
-
-
-def test_variant_edits_apply_to_the_sources():
-    """The design variants that tools/ivf_kernel_variants.py times against
-    kernels C and D are exact text edits of their sources: each must still
-    find its target once, in order."""
-    from densephrases_tpu_torch.tools import ivf_kernel_variants as tool
-    from densephrases_tpu_torch.utils.cuda_build import CSRC_DIR
-
-    for name, (source, edits) in tool.VARIANT_SOURCES.items():
-        text = (CSRC_DIR / source).read_text()
-        for old, new in edits:
-            assert text.count(old) == 1, (name, old)
-            text = text.replace(old, new)
-    used = {lib for rows in tool.VARIANTS.values() for _, lib, _ in rows}
-    assert used - {"base"} == set(tool.VARIANT_SOURCES)

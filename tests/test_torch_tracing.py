@@ -38,6 +38,9 @@ FLAT_SPANS = ({"serve.request", "index.search_dense", "index.flat.scan"}
 IVF_SPANS = ({"serve.request", "index.search_dense", "index.ivf.probe",
               "index.ivf.block_table", "index.ivf.scan", "index.ivf.select",
               "index.ivf.refine"} | TOWERS | AFTER)
+# MIPS's one device→host hand-off opens each of these once a request, on
+# the fused and the modular route alike
+ONCE = ("serve.copy", "serve.wait", "index.assemble", "index.aggregate")
 
 
 @pytest.fixture(scope="module")
@@ -126,7 +129,10 @@ def test_flat_spans_nest_under_one_request(served):
         _flat_search(served)
     spans = rec.spans()
     assert {s.name for s in spans} == FLAT_SPANS
-    assert [s.name for s in spans].count("serve.request") == 1
+    names = [s.name for s in spans]
+    assert names.count("serve.request") == 1
+    for name in ONCE:
+        assert names.count(name) == 1, name
     _check_nesting(spans)
     chains = _roots(spans)
     scan = next(s for s in spans if s.name == "index.flat.scan")
@@ -147,8 +153,10 @@ def test_pipelined_batches_keep_their_requests_apart(served):
     # submit and collect each open the batch's root span
     assert sorted(s.request for s in roots) == sorted(rids * 2)
     for rid in rids:
-        names = {s.name for s in spans if s.request == rid}
-        assert names == FLAT_SPANS
+        names = [s.name for s in spans if s.request == rid]
+        assert set(names) == FLAT_SPANS
+        for name in ONCE:
+            assert names.count(name) == 1, (rid, name)
 
 
 def test_ivf_spans_nest_under_one_request(served):
@@ -156,11 +164,66 @@ def test_ivf_spans_nest_under_one_request(served):
         _ivf_search(served)
     spans = rec.spans()
     assert {s.name for s in spans} == IVF_SPANS
+    names = [s.name for s in spans]
+    for name in ONCE:
+        assert names.count(name) == 1, name
     _check_nesting(spans)
     chains = _roots(spans)
     for s in spans:
         if s.name.startswith("index.ivf."):
             assert "index.search_dense" in chains[s.id]
+
+
+def test_pack_round_trips_floats_and_ints():
+    """``_pack`` bit-casts floats and narrows integers into one int32
+    buffer; ``_unpack`` on its host copy gives each value back."""
+    g = torch.Generator().manual_seed(0)
+    parts = {"f32": torch.randn(3, 4, generator=g),
+             "bf16": torch.randn(2, 5, generator=g).to(torch.bfloat16),
+             "i64": torch.randint(-2**31, 2**31, (3, 2), generator=g),
+             "i32": torch.randint(-9, 9, (4,), generator=g,
+                                  dtype=torch.int32),
+             "empty": torch.zeros(0, 3)}
+    buf, layout = search_mod._pack(parts)
+    assert buf.dtype == torch.int32
+    assert buf.numel() == sum(t.numel() for t in parts.values())
+    got = search_mod._unpack(buf.numpy(), layout)
+    assert list(got) == list(parts)
+    for key, t in parts.items():
+        want = (t.to(torch.float32) if t.is_floating_point()
+                else t.to(torch.int32)).numpy()
+        assert got[key].dtype == want.dtype and got[key].shape == want.shape
+        assert np.array_equal(got[key], want), key
+
+
+def test_send_hands_the_cpu_buffer_over_and_counts_its_bytes(served):
+    """On the CPU ``_send`` copies nothing and records no event; it counts
+    the bundle's bytes, and ``_receive`` assembles from the buffer."""
+    mips = served["fused"].mips
+    query = served["flat_model"].query2vec(TEXTS)
+    hits = mips.search_dense(query, top_k=5)
+    buf, layout = mips.rescore(query, *hits)
+    with profiling.recording() as rec:
+        handle = mips._send(buf, layout)
+    assert handle["buf"] is buf and handle["done"] is None
+    assert rec.counters() == {"serve.d2h_bytes": 4 * buf.numel()}
+    assert len(mips._receive(handle)) == len(TEXTS)
+
+
+@pytest.mark.parametrize("route", ["flat", "ivf"])
+def test_search_phrase_is_rescore_send_receive(served, route):
+    """``search_phrase`` on a device index gives what the fused route's
+    two halves give for the same hits."""
+    model = served["flat_model" if route == "flat" else "ivf_model"]
+    mips = model.mips
+    query = model.query2vec(TEXTS)
+    hits = mips.search_dense(query, top_k=5)
+    whole = mips.search_phrase(query, *hits, return_sent=True)
+    halves = mips._receive(mips._send(*mips.rescore(query, *hits)),
+                           return_sent=True)
+    assert whole == halves
+    assert mips._aggregate(whole, TEXTS, 5, "opt1") == [
+        mips.aggregate_results(r, 5, q, "opt1") for r, q in zip(halves, TEXTS)]
 
 
 def _recount(ivf, stacked, nprobe):
